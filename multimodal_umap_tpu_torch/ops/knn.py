@@ -1,0 +1,122 @@
+"""Exact k-nearest-neighbor search.
+
+Counterpart of ``multimodal_umap_tpu/ops/knn.py``. Distance panels
+``|q|^2 + |r|^2 - 2 q r^T`` for a block of query rows against all
+references, then a per-row selection; ids are int32, distances are
+Euclidean (not squared), ascending.
+
+Engines (``engine=`` argument, or the ``MMUMAP_KNN_ENGINE`` variable,
+else the device default):
+
+* ``bf16`` (CUDA default) -- the hand-written tile kernel
+  (ops/knn_tile.py, csrc/knn_tile.cu) in bf16 mode: bf16 tensor-core
+  panels, per-tile top-k in the kernel, exact merge, candidates
+  (per tile max(k+8, :func:`_candidate_width`), global max(4k, 64))
+  re-scored exactly in f32;
+* ``stream`` -- the same kernel path with the streamed engine's
+  candidate width (:func:`_candidate_width`);
+* ``pallas`` -- the tile kernel in f32 mode (full f32 products);
+* ``xla`` (CPU default) -- exact f32 row-blocked panels with
+  ``torch.matmul`` + ``torch.topk``; explicit only on CUDA;
+* ``approx`` -- not ported (the TPU's approximate top-k hardware op).
+
+On the CPU the kernel engines run the kernel's plain version.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from .knn_tile import _candidate_width, knn_tiled
+
+_ENGINES = frozenset({"bf16", "xla", "pallas", "approx", "stream"})
+
+
+def resolve_engine(engine: str | None = None,
+                   device: torch.device | str | None = None) -> str:
+    """Engine resolution: explicit argument > MMUMAP_KNN_ENGINE >
+    device default (bf16 on CUDA -- the default device -- xla on the
+    CPU). Unknown names raise."""
+    dev = torch.device("cuda" if device is None else device)
+    resolved = engine or os.environ.get("MMUMAP_KNN_ENGINE", "") or (
+        "bf16" if dev.type == "cuda" else "xla"
+    )
+    if resolved not in _ENGINES:
+        raise ValueError(
+            f"unknown kNN engine {resolved!r}; expected one of "
+            f"{sorted(_ENGINES)}")
+    return resolved
+
+
+def _exact_rescore_sq(q: torch.Tensor, references: torch.Tensor,
+                      ids: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Exact f32 squared distances of each query to its candidate rows,
+    in the direct ``sum((q - r)^2)`` form (no cancellation). The
+    (rows, cand, D) gather is the transient, bounded by ``chunk`` rows."""
+    out = []
+    for s in range(0, q.shape[0], chunk):
+        rows = references[ids[s:s + chunk].long()].float()  # (c, cand, D)
+        diff = q[s:s + chunk].float()[:, None, :] - rows
+        out.append((diff * diff).sum(2))
+    return torch.cat(out)
+
+
+def _knn_block(q_block: torch.Tensor, references: torch.Tensor,
+               r_sq: torch.Tensor, row_offset: int, k: int,
+               exclude_self: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One row block against all references: f32 panel + top-k."""
+    q_sq = (q_block * q_block).sum(1, keepdim=True)
+    panel = (q_sq + r_sq[None, :] - 2.0 * (q_block @ references.T)).clamp_min(0.0)
+    if exclude_self:
+        rows = torch.arange(q_block.shape[0], device=panel.device)
+        cols = rows + row_offset
+        ok = cols < references.shape[0]
+        panel[rows[ok], cols[ok]] = float("inf")
+    d, ids = torch.topk(panel, k, dim=1, largest=False)
+    return d.clamp_min(0.0).sqrt(), ids.to(torch.int32)
+
+
+def knn(
+    queries: torch.Tensor,
+    references: torch.Tensor,
+    k: int,
+    *,
+    exclude_self: bool = False,
+    row_block: int = 8192,
+    engine: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN of ``queries`` (Q, D) against ``references`` (N, D).
+
+    ``exclude_self`` masks query i vs reference i (fit mode, where the
+    queries are the references). Returns ((Q, k) ascending Euclidean
+    distances, (Q, k) int32 reference ids).
+    """
+    engine = resolve_engine(engine, queries.device)
+    if engine == "approx":
+        raise ValueError(
+            "kNN engine 'approx' is not ported to PyTorch yet (it maps to "
+            "the TPU's approximate top-k); use 'bf16', 'stream', 'pallas' "
+            "or 'xla'")
+    if engine in ("bf16", "stream", "pallas"):
+        cand = None
+        if engine == "stream":
+            cand = _candidate_width(
+                k, references.shape[0] - (1 if exclude_self else 0))
+        return knn_tiled(queries, references, k, exclude_self=exclude_self,
+                         bf16=engine != "pallas", row_block=row_block,
+                         cand=cand)
+
+    q = queries.float()
+    r = references.float()
+    num_q, num_r = q.shape[0], r.shape[0]
+    if k > num_r - (1 if exclude_self else 0):
+        raise ValueError(f"k={k} exceeds available references ({num_r})")
+    r_sq = (r * r).sum(1)
+    d_parts, i_parts = [], []
+    for s in range(0, num_q, row_block):
+        d, i = _knn_block(q[s:s + row_block], r, r_sq, s, k, exclude_self)
+        d_parts.append(d)
+        i_parts.append(i)
+    return torch.cat(d_parts), torch.cat(i_parts)

@@ -1,0 +1,90 @@
+"""Profile the PyTorch port's fit layout epoch on one CUDA GPU.
+
+    python3 profile_torch.py [--epochs 20] [--out chiprun_out/profile]
+
+Builds the fit graphs of the chip-smoke main path (31,744 synthetic
+pairs at 768 / 4096 dims, k=15, out_dim=64), then runs ``--epochs``
+layout epochs twice: once timed (host clock around a synchronized run)
+and once under ``torch.profiler``. Prints JSON lines: the card, the ms
+per epoch, the device-busy share (summed kernel time over the profiled
+wall time) and the kernels that take the most device time. Writes the
+Chrome trace to ``--out``. Needs a GPU; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--epochs", type=int, default=20)
+    ap.add_argument("--out", default="chiprun_out/profile")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch: needs a CUDA GPU")
+    from multimodal_umap_tpu_torch import Config, MultimodalUMAP
+    from multimodal_umap_tpu_torch.data.synthetic import clustered_modalities
+    from multimodal_umap_tpu_torch.models.layout import fit_task, train_layout
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(json.dumps({"device": smi}), flush=True)
+    cfg = Config()
+    data = clustered_modalities(31_744, dims=(768, 4096), seed=0,
+                                centers_seed=1)
+    model = MultimodalUMAP(cfg.k_neighbors, cfg.out_dim, cfg.min_dist, 2,
+                           device="cuda")
+    graphs = [enc.fit_graph(torch.from_numpy(x).cuda())
+              for enc, x in zip(model.encoders, data.values())]
+    tasks, statics = zip(*(fit_task(d, cfg.batch_size) for _, d, _ in graphs))
+    inits = [init for _, _, init in graphs]
+
+    def run(epochs):
+        return train_layout(inits, tasks, statics, mode="fit", epochs=epochs,
+                            num_rep=cfg.num_rep, lr=cfg.lr, alpha=cfg.alpha,
+                            batch_size=cfg.batch_size, a=model.a, b=model.b)
+
+    run(2)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(args.epochs)
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3 / args.epochs
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run(args.epochs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # Kernel events only: an aten op's self device time repeats the time
+    # of the kernels it launched.
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    print(json.dumps({
+        "epochs": args.epochs, "epoch_ms": epoch_ms,
+        "profiled_wall_ms": wall_us / 1e3,
+        "device_busy_share": device_us / wall_us,
+        "kernel_launches_per_epoch": sum(e.count for e in events) / args.epochs,
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "device_ms_per_epoch":
+                             e.self_device_time_total / 1e3 / args.epochs}
+                        for e in top],
+    }), flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(args.out, "fit_layout_trace.json"))
+
+
+if __name__ == "__main__":
+    main()

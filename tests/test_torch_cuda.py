@@ -1,0 +1,95 @@
+"""PyTorch port on the card: the CUDA kNN tile kernel against its plain
+version. Imports no JAX, so on a GPU machine without JAX it runs as
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Without a GPU every case skips (the kernel has no CPU mode). Tolerance
+on squared distances: rtol (|plain| + max|q|^2 + max|r|^2), rtol 1e-5
+in f32 mode (another summation order) and 1e-4 in bf16 mode (the tensor
+cores' f32 accumulation does not round to nearest); ids equal as
+tie-aware sets.
+"""
+
+import pytest
+import torch
+
+from multimodal_umap_tpu_torch.ops import knn_tile as KT
+from multimodal_umap_tpu_torch.ops.knn import knn
+
+torch.set_num_threads(1)
+
+
+def _require_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+
+
+def _assert_tie_aware(d_a, i_a, d_b, i_b, tol):
+    """Rows of ascending squared distances agree within ``tol`` (same
+    shape as ``d_b``) and their ids as tie-aware sets: an id missing
+    from the other row sits at the row's boundary value."""
+    k = d_a.shape[-1]
+    d_a, d_b, tol = (x.reshape(-1, k) for x in (d_a, d_b, tol))
+    i_a, i_b = i_a.reshape(-1, k), i_b.reshape(-1, k)
+    fin = torch.isfinite(d_b)
+    assert torch.equal(torch.isfinite(d_a), fin)
+    assert bool(((d_a - d_b).abs() <= tol)[fin].all())
+    in_b = (i_a[:, :, None] == i_b[:, None, :]).any(-1)
+    at_edge = (d_a - d_a[:, -1:]).abs() <= tol
+    assert bool((in_b | at_edge).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_matches_plain_on_cuda(bf16):
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    rtol = 1e-4 if bf16 else 1e-5
+    for q_n, n, d, tk, ex in [(40, 40, 24, 5, True), (19, 187, 33, 4, False),
+                              (300, 1000, 96, 32, True), (16, 48, 8, 3, False)]:
+        r = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        q = r[:q_n] if ex else torch.randn(q_n, d, generator=gen,
+                                           device="cuda").to(dt)
+        before = KT.KNN_TILE_LAUNCHES
+        d_k, i_k = KT.knn_tile(q, r, tk, exclude_self=ex)
+        torch.cuda.synchronize()
+        assert KT.KNN_TILE_LAUNCHES == before + 1
+        d_p, i_p = KT.knn_tile_plain(q, r, tk, exclude_self=ex)
+        scale = float((q.float() ** 2).sum(1).max()
+                      + (r.float() ** 2).sum(1).max())
+        _assert_tie_aware(d_k, i_k, d_p, i_p, rtol * (d_p.abs() + scale))
+
+
+@pytest.mark.cuda
+def test_kernel_engines_match_exact_engine_on_cuda():
+    """bf16 / stream / pallas engines (kernel) against the exact f32
+    engine on the card: the kernel engines re-score or rank in f32."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(700, 40, generator=gen, device="cuda") * 3.0
+    q = torch.randn(90, 40, generator=gen, device="cuda") * 3.0
+    for queries, ex in ((x, True), (q, False)):
+        d_x, i_x = knn(queries, x, 15, exclude_self=ex, engine="xla")
+        scale = float((queries ** 2).sum(1).max() + (x ** 2).sum(1).max())
+        for engine in ("bf16", "stream", "pallas"):
+            d_k, i_k = knn(queries, x, 15, exclude_self=ex, engine=engine,
+                           row_block=64)
+            assert i_k.dtype == torch.int32
+            _assert_tie_aware(d_k ** 2, i_k, d_x ** 2, i_x,
+                              1e-5 * (d_x ** 2 + scale))
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
+    """On a CUDA tensor the wrapper launches the kernel or raises: with
+    the build made to fail, it raises instead of computing."""
+    _require_cuda()
+
+    def broken():
+        raise RuntimeError("no nvcc")
+
+    monkeypatch.setattr(KT, "build", broken)
+    x = torch.randn(10, 8, device="cuda")
+    with pytest.raises(RuntimeError, match="no nvcc"):
+        KT.knn_tile(x, x, 3)

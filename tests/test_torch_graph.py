@@ -1,0 +1,156 @@
+"""PyTorch port: sigma solve, fuzzy graph, curve fit and spectral init
+against the JAX package and the reference goldens.
+
+Tolerances: rtol 1e-5 against JAX on the same (dists, nbrs) -- the same
+f32 formulas, summed in another order; the goldens' own bands of
+tests/test_parity_goldens.py; spectral subspaces by principal angles
+(cosines > 0.99), since the start blocks' random draws differ.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_parity import subspace_sv, t
+
+from multimodal_umap_tpu.models.curve import get_ab_coeffs as j_ab
+from multimodal_umap_tpu.ops import graph as JG
+from multimodal_umap_tpu.ops.sigma import solve_sigmas as j_sigmas
+from multimodal_umap_tpu.ops.spectral import spectral_embedding as j_spectral
+from multimodal_umap_tpu_torch.models.curve import get_ab_coeffs
+from multimodal_umap_tpu_torch.ops import graph as PG
+from multimodal_umap_tpu_torch.ops import spectral as PS
+from multimodal_umap_tpu_torch.ops.sigma import solve_sigmas
+
+torch.set_num_threads(1)
+
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens",
+                       "reference_goldens.npz")
+
+
+@pytest.fixture(scope="module")
+def g():
+    return np.load(GOLDENS)
+
+
+def _knn_graph(n=120, k=6, d=5, seed=0):
+    """(dists, nbrs) of an exact self kNN graph, in numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    dist = np.linalg.norm(x[:, None] - x[None], axis=2)
+    np.fill_diagonal(dist, np.inf)
+    nbrs = np.argsort(dist, axis=1, kind="stable")[:, :k].astype(np.int32)
+    return np.take_along_axis(dist, nbrs, 1).astype(np.float32), nbrs
+
+
+def test_sigmas_match_jax_and_golden(g):
+    dists, _ = _knn_graph()
+    rhos = dists.min(1)
+    np.testing.assert_allclose(
+        solve_sigmas(t(dists), t(rhos)).numpy(),
+        np.asarray(j_sigmas(jnp.asarray(dists), jnp.asarray(rhos))),
+        rtol=1e-5)
+    np.testing.assert_allclose(
+        solve_sigmas(t(g["sigma_dists"]), t(g["sigma_rhos"])).numpy(),
+        g["sigma_values"], rtol=1e-3, atol=1e-4)
+
+
+def test_fuzzy_and_curve_weights_match_jax():
+    dists, _ = _knn_graph(seed=1)
+    got = PG.fuzzy_weights(t(dists))
+    want = JG.fuzzy_weights(jnp.asarray(dists))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-7)
+    np.testing.assert_allclose(
+        PG.curve_weights(t(dists), 1.577, 0.8951).numpy(),
+        np.asarray(JG.curve_weights(jnp.asarray(dists), jnp.float32(1.577),
+                                    jnp.float32(0.8951))),
+        rtol=1e-5)
+
+
+def test_symmetrize_matches_jax():
+    dists, nbrs = _knn_graph(seed=2)
+    w = np.asarray(JG.fuzzy_weights(jnp.asarray(dists))[0])
+    got = PG.symmetrize(t(nbrs), t(w))
+    want = JG.symmetrize(jnp.asarray(nbrs), jnp.asarray(w))
+    for name in ("rows", "cols", "valid"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)))
+    np.testing.assert_allclose(got.weights.numpy(), np.asarray(want.weights),
+                               rtol=1e-5)
+    np.testing.assert_allclose(PG.to_dense(got).numpy(),
+                               np.asarray(JG.to_dense(want)), rtol=1e-5)
+    dense = PG.symmetrize_dense(t(nbrs), t(w))
+    want_d = JG.symmetrize_dense(jnp.asarray(nbrs), jnp.asarray(w))
+    np.testing.assert_array_equal(dense.nbrs.numpy(), np.asarray(want_d.nbrs))
+    np.testing.assert_array_equal(dense.bwd_valid.numpy(),
+                                  np.asarray(want_d.bwd_valid))
+    np.testing.assert_allclose(dense.weights.numpy(),
+                               np.asarray(want_d.weights), rtol=1e-5)
+
+
+def test_symmetrize_golden(g):
+    graph = PG.symmetrize(t(g["sym_nbrs"]), t(g["sym_weights"]))
+    dense = PG.to_dense(graph).numpy()
+    np.testing.assert_allclose(dense, g["sym_dense"], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(dense, dense.T, rtol=1e-5, atol=1e-6)
+
+
+def test_embed_query_matches_jax():
+    rng = np.random.default_rng(3)
+    nbrs = rng.integers(0, 50, size=(17, 6)).astype(np.int32)
+    w = rng.random((17, 6)).astype(np.float32)
+    w[0] = 0.0  # row sums clamp >= 1e-6
+    ref = rng.normal(size=(50, 4)).astype(np.float32)
+    np.testing.assert_allclose(
+        PG.embed_query(t(nbrs), t(w), t(ref)).numpy(),
+        np.asarray(JG.embed_query(jnp.asarray(nbrs), jnp.asarray(w),
+                                  jnp.asarray(ref))),
+        rtol=1e-5, atol=1e-7)
+
+
+def test_ab_coeffs_match_jax_and_golden(g):
+    for md in (0.0, 0.05, 0.1, 0.25, 0.5, 0.99):
+        np.testing.assert_allclose(get_ab_coeffs(md), j_ab(md), rtol=1e-12)
+    for md, (a_ref, b_ref) in zip(g["ab_min_dists"], g["ab_values"]):
+        a, b = get_ab_coeffs(float(md))
+        assert abs(a - a_ref) < 5e-3 * max(1.0, abs(a_ref))
+        assert abs(b - b_ref) < 5e-3 * max(1.0, abs(b_ref))
+
+
+@pytest.mark.parametrize("method", ["dense", "chebyshev", "auto"])
+def test_spectral_golden_subspace(g, method):
+    graph = PG.symmetrize(t(g["sym_nbrs"]), t(g["sym_weights"]))
+    ours = PS.spectral_embedding(graph, 4, method=method).numpy()
+    assert ours.shape == (96, 4) and np.isfinite(ours).all()
+    assert subspace_sv(ours, g["spectral_vectors"]).min() > 0.99
+    j_graph = JG.symmetrize(jnp.asarray(g["sym_nbrs"]),
+                            jnp.asarray(g["sym_weights"]))
+    for j_method in ("dense", "chebyshev"):
+        theirs = np.asarray(j_spectral(j_graph, 4, method=j_method))
+        assert subspace_sv(ours, theirs).min() > 0.99
+
+
+def test_chebyshev_matches_jax_and_converges():
+    """A larger graph (the filter path proper, not the small-n dense
+    guardrail): subspace equal to JAX's filter and to dense eigh, worst
+    residual of the returned Ritz vectors <= tol."""
+    dists, nbrs = _knn_graph(n=400, k=10, d=3, seed=4)
+    w = np.asarray(JG.fuzzy_weights(jnp.asarray(dists))[0])
+    graph = PG.symmetrize(t(nbrs), t(w))
+    ours = PS.spectral_embedding(graph, 6, method="chebyshev").numpy()
+    j_graph = JG.symmetrize(jnp.asarray(nbrs), jnp.asarray(w))
+    theirs = np.asarray(j_spectral(j_graph, 6, method="chebyshev"))
+    assert subspace_sv(ours, theirs).min() > 0.99
+    dense = PS.spectral_embedding(graph, 6, method="dense").numpy()
+    assert subspace_sv(ours, dense).min() > 0.99
+    lap = PS._Laplacian(graph)
+    x = torch.from_numpy(ours)
+    theta = (x * lap(x)).sum(0)
+    resid = torch.sqrt(((lap(x) - x * theta) ** 2).sum(0)).max()
+    assert float(resid) <= 2e-3
+    with pytest.raises(ValueError, match="not ported"):
+        PS.spectral_embedding(graph, 6, method="lobpcg")
