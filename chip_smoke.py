@@ -10,14 +10,20 @@ line:
 
 1. device -- the card (``nvidia-smi`` name and power limit) and the TF32
    flags; fails if float32 matmuls may use TF32;
-2. build -- builds the kernel, prints the build seconds;
-3. kernel_vs_plain -- the kernel against its plain PyTorch version on
-   the card, in f32 and bf16 modes: small cases plus one main-path block
-   (8,192 rows against the full 31,744 x 4,096 table, k=15,
-   exclude_self). Squared distances within rtol (|b| + max|q|^2 +
-   max|r|^2), rtol 1e-5 in f32 mode (another summation order) and 1e-4
-   in bf16 mode (tensor-core f32 accumulation), and ids equal as
-   tie-aware sets;
+2. build -- builds the kernels (one ``nvcc`` of ``csrc/knn_tile.cu``),
+   prints the build seconds, each kernel's registers and spill bytes
+   from ``-Xptxas -v`` and the bf16 tile kernel's count of ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA load) SASS instructions
+   (``cuobjdump -sass``); fails on a spill or a count of 0;
+3. kernel_vs_plain -- each kernel against its plain PyTorch version on
+   the card: the tile kernel in f32 and bf16 modes on the edge cases of
+   ``KERNEL_CASES`` plus two main-path blocks (rows [8192, 16384) of the
+   31,744 x 4,096 image table and the last fit block, rows [24576,
+   31744) of the 768-d text table, k=15, exclude_self). Squared
+   distances within rtol (|b| + max|q|^2 + max|r|^2), rtol 1e-5 in f32
+   mode (another summation order) and 1e-4 in bf16 mode (tensor-core f32
+   accumulation), and ids equal as tie-aware sets; the norm pre-pass
+   within 1e-5 of the norm;
 4. reference -- the port on the card against the repo's end-to-end
    golden band (tests/goldens/reference_e2e.json: cosine, trust) and the
    kernel kNN engine against the exact f32 engine on a small input;
@@ -26,16 +32,21 @@ line:
    ``similarity_test`` and ``knn_test`` (k=5) on 1,024 held-out pairs at
    120 test epochs, ``trustworthiness_sampled`` on both modalities;
    kernel launches counted after fit, transform and knn_test; fails on
-   a non-finite metric or cosine < 0.9;
-6. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
+   a non-finite metric, cosine < 0.9 or a kernel the path never ran;
+6. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
+   (norm pre-pass, tile kernel, candidate permute + merge ``topk``,
+   exact f32 re-score), and the tile kernel's time and bound at the
+   other main-path shapes (D=768; the 1,024-row transform block);
+7. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
    times of each kernel at the main-path block shape;
-7. last line -- ``{"ok": true, "device": {...}}``.
+8. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -47,11 +58,66 @@ N_TRAIN, N_TEST, DIMS, K = 31_744, 1_024, (768, 4096), 15
 BLOCK_ROWS = 8192
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
+H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM
 # Tolerances on squared distances, relative to the cancelled-term scale:
 # f32 mode sums in another order than the plain version (~1e-7 seen);
 # bf16 mode accumulates on the tensor cores, whose f32 sums do not round
 # to nearest (1.8e-5 seen at the D=4096 block).
 RTOL = {False: 1e-5, True: 1e-4}
+
+# Edge cases of the tile kernel: (Q, N, D, tile_k, exclude_self,
+# row_offset, duplicate rows); tile_k None is the full column tile. Q
+# not a multiple of the row tile, N below one column tile and with a
+# partial last one, D padded (8, 17, 33), a whole number of slices, or
+# more slices than the bf16 ring holds (768: 12 slices, 4 stages),
+# tile_k 1 / 32 / all, self-exclusion at a row offset, exact duplicate
+# rows, and (Q = N = 257, exclude_self) a tile of +inf only.
+KERNEL_CASES = [
+    (40, 40, 24, 5, True, 0, False), (24, 200, 16, 7, False, 0, False),
+    (19, 187, 33, 4, False, 0, False), (60, 60, 24, 13, True, 0, False),
+    (21, 150, 17, 14, False, 0, False), (16, 48, 8, 3, False, 0, False),
+    (300, 1000, 96, 32, True, 0, False), (19, 600, 64, 1, False, 0, False),
+    (130, 600, 64, None, True, 0, False), (100, 700, 40, 32, True, 300, False),
+    (64, 512, 33, 32, True, 0, True), (257, 257, 33, 32, True, 0, False),
+    (19, 300, 768, 32, True, 5, False),
+]
+
+
+def case_inputs(case, gen, device, dtype):
+    """(q, r, tile_k, exclude_self, row_offset) of a KERNEL_CASES entry;
+    q is rows [row_offset, row_offset + Q) of r under exclude_self."""
+    q_n, n, d, tk, ex, off, dup = case
+    r = torch.randn(n, d, generator=gen, device=device) * 4.0
+    if dup:
+        r[1::2] = r[0::2][: n // 2]
+    q = r[off:off + q_n] if ex else torch.randn(
+        q_n, d, generator=gen, device=device) * 4.0
+    return q.to(dtype), r.to(dtype), tk, ex, off
+
+
+def library_tile_topk(q, r, tile_k, tile_c, *, exclude_self=False,
+                      row_offset=0):
+    """Yardstick only, never called by the port: the tile kernel's
+    function as a chain of PyTorch calls (bf16 ``torch.matmul``, norms of
+    the rows as given, clamp, masks, per-tile ``topk``). Returns
+    ((Q, num_col_tiles, tile_k) squared distances, global column ids);
+    the order among ties is ``topk``'s."""
+    nq, n = q.shape[0], r.shape[0]
+    q_sq = (q.float() ** 2).sum(1)
+    r_sq = (r.float() ** 2).sum(1)
+    panel = ((-2.0 * torch.matmul(q, r.T).float() + q_sq[:, None])
+             + r_sq[None, :]).clamp_min(0.0)
+    if exclude_self:
+        rows = torch.arange(nq, device=q.device)
+        ok = rows + row_offset < n
+        panel[rows[ok], rows[ok] + row_offset] = float("inf")
+    nct = -(-n // tile_c)
+    panel = torch.nn.functional.pad(panel, (0, nct * tile_c - n),
+                                    value=float("inf"))
+    vals, idx = panel.view(nq, nct, tile_c).topk(tile_k, dim=2,
+                                                 largest=False)
+    return vals, idx + (torch.arange(nct, device=q.device)
+                        * tile_c)[None, :, None]
 
 
 def emit(obj) -> None:
@@ -108,6 +174,41 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+KERNEL_FUNCTIONS = ("knn_tile_bf16_kernel", "knn_tile_f32_kernel",
+                    "rownorm_bf16_kernel")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = next((k for k in KERNEL_FUNCTIONS if k in m.group(1)),
+                       m.group(1))
+            out[cur] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur:
+            out[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_counts(so_path, kernel: str, opcodes) -> dict:
+    """Counts of SASS opcodes in one kernel of a built library."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(so_path)],
+        capture_output=True, text=True, check=True).stdout
+    body = next((f for f in sass.split("Function : ") if kernel in
+                 f.split("\n", 1)[0]), "")
+    return {op: len(re.findall(rf"\b{op}\b", body)) for op in opcodes}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False -- needs a "
@@ -142,9 +243,17 @@ def main() -> None:
     # 2. build
     t0 = time.perf_counter()
     KT.build()
+    ptxas = ptxas_report(KT.BUILD_LOG)
+    sass = sass_counts(KT.SO_PATH, "knn_tile_bf16_kernel",
+                       ("HGMMA", "UTMALDG"))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": KT.BUILD_SECONDS,
-          "ptxas": [ln for ln in KT.BUILD_LOG.splitlines() if "Used" in ln]})
+          "nvcc_seconds": KT.BUILD_SECONDS, "ptxas": ptxas,
+          "knn_tile_bf16_sass": sass})
+    check(set(ptxas) >= set(KERNEL_FUNCTIONS), "ptxas report incomplete")
+    check(all(v.get("spill_bytes") == 0 for v in ptxas.values()),
+          "a kernel spills registers")
+    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
+          "bf16 tile kernel has no wgmma or no TMA load")
 
     t0 = time.perf_counter()
     data = clustered_modalities(N_TRAIN + N_TEST, dims=DIMS, seed=0,
@@ -157,42 +266,48 @@ def main() -> None:
 
     # 3. kernel vs plain
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = [  # (Q, N, D, tile_k, exclude_self): tests/test_knn_pallas.py
-        (40, 40, 24, 5, True), (24, 200, 16, 7, False),
-        (19, 187, 33, 4, False), (60, 60, 24, 13, True),
-        (21, 150, 17, 14, False), (16, 48, 8, 3, False)]
+    texts = torch.from_numpy(train_np["texts"]).to(dev)
+    last = N_TRAIN - (N_TRAIN - 1) // BLOCK_ROWS * BLOCK_ROWS  # 7,168 rows
+    blocks = [(images, BLOCK_ROWS, BLOCK_ROWS), (texts, N_TRAIN - last, last)]
     results = []
     for bf16 in (False, True):
         dt = torch.bfloat16 if bf16 else torch.float32
-        for q_n, n, d, tk, ex in cases:
-            r = torch.randn(n, d, generator=gen, device=dev) * 4.0
-            q = r[:q_n] if ex else torch.randn(q_n, d, generator=gen,
-                                               device=dev) * 4.0
-            got = KT.knn_tile(q.to(dt), r.to(dt), tk, exclude_self=ex)
+        for case in KERNEL_CASES:
+            q, r, tk, ex, off = case_inputs(case, gen, dev, dt)
+            tk = KT.TILE_C if tk is None else tk
+            got = KT.knn_tile(q, r, tk, exclude_self=ex, row_offset=off)
             torch.cuda.synchronize()
-            want = KT.knn_tile_plain(q.to(dt), r.to(dt), tk, exclude_self=ex)
+            want = KT.knn_tile_plain(q, r, tk, exclude_self=ex, row_offset=off)
             results.append({
-                "shape": [q_n, n, d], "tile_k": tk, "bf16": bf16,
-                **tie_aware_match(*got, *want, sq_scale(q.to(dt), r.to(dt)),
-                                  RTOL[bf16])})
-        # main-path block: rows [8192, 16384) of the fit graph at D=4096
+                "case": list(case), "tile_k": tk, "bf16": bf16,
+                **tie_aware_match(*got, *want, sq_scale(q, r), RTOL[bf16])})
+        # main-path blocks of the fit graph
         tk = KT.bf16_tile_k(K, N_TRAIN - 1) if bf16 else K
-        qb = images[BLOCK_ROWS:2 * BLOCK_ROWS].to(dt)
-        rb = images.to(dt)
-        got = KT.knn_tile(qb, rb, tk, exclude_self=True, row_offset=BLOCK_ROWS)
-        torch.cuda.synchronize()
-        want = KT.knn_tile_plain(qb, rb, tk, exclude_self=True,
-                                 row_offset=BLOCK_ROWS)
-        results.append({
-            "shape": [BLOCK_ROWS, N_TRAIN, DIMS[1]], "tile_k": tk,
-            "bf16": bf16,
-            **tie_aware_match(*got, *want, sq_scale(qb, rb), RTOL[bf16])})
-        del got, want
-    main_block_err = results[-1]["max_abs_err"]
+        for table, start, rows in blocks:
+            qb, rb = table[start:start + rows].to(dt), table.to(dt)
+            got = KT.knn_tile(qb, rb, tk, exclude_self=True, row_offset=start)
+            torch.cuda.synchronize()
+            want = KT.knn_tile_plain(qb, rb, tk, exclude_self=True,
+                                     row_offset=start)
+            results.append({
+                "shape": list(qb.shape) + [N_TRAIN], "row_offset": start,
+                "tile_k": tk, "bf16": bf16,
+                **tie_aware_match(*got, *want, sq_scale(qb, rb), RTOL[bf16])})
+            del got, want
+    main_block_err = results[-2]["max_abs_err"]
+    rb = images.to(torch.bfloat16)
+    norm_k = KT.row_norms_sq(rb)
+    torch.cuda.synchronize()
+    norm_p = KT.row_norms_sq_plain(rb)
+    norm_err = float((norm_k - norm_p).abs().max())
+    norm_ok = bool(((norm_k - norm_p).abs() <= 1e-5 * norm_p).all())
     emit({"phase": "kernel_vs_plain", "rtol_of_scale": RTOL,
-          "cases": results})
+          "cases": results, "row_norms": {"shape": list(rb.shape),
+                                          "max_abs_err": norm_err,
+                                          "rtol": 1e-5, "ok": norm_ok}})
     check(all(c["values_ok"] and c["ids_ok"] for c in results),
-          "kernel disagrees with plain")
+          "tile kernel disagrees with plain")
+    check(norm_ok, "norm pre-pass disagrees with plain")
 
     # 4. small reference: golden band + kernel engine vs exact engine
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -232,6 +347,7 @@ def main() -> None:
     cfg = Config()
     torch.cuda.synchronize()
     KT.KNN_TILE_LAUNCHES = 0
+    KT.ROW_NORM_LAUNCHES = 0
     launches = {}
     phases = {}
     t0 = time.perf_counter()
@@ -254,6 +370,7 @@ def main() -> None:
              for i, k in enumerate(train_np)]
     phases["trustworthiness_sampled"] = time.perf_counter() - t0
     main_launches = KT.KNN_TILE_LAUNCHES
+    norm_launches = KT.ROW_NORM_LAUNCHES
     embeds_ok = all(
         tuple(e.shape) == (N_TRAIN, cfg.out_dim) and bool(torch.isfinite(e).all())
         for e in model.embeds)
@@ -266,6 +383,7 @@ def main() -> None:
           "fit_loss_first_last": [float(fit_loss[0]), float(fit_loss[-1])],
           "cosine": cosine, "knn5": knn5, "trust": trust,
           "knn_tile_launches": launches,
+          "row_norm_launches": norm_launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
     check(embeds_ok, "fit embeddings not finite or of the wrong shape")
     check(all(np.isfinite(v) for v in [cosine, knn5, *trust, *fit_loss]),
@@ -276,24 +394,83 @@ def main() -> None:
           "transform launched no kNN kernel")
     check(launches["after_knn_test"] > launches["after_transform"],
           "knn_test launched no kNN kernel")
+    check(norm_launches > 0, "the main path launched no norm pre-pass")
 
-    # 6. kernels line: the fit graph's main-path block at D=4096, bf16
+    # 6. knn_tiled's stages at the main-path block (rows [0, 8192) of the
+    # D=4096 fit graph, bf16), and the tile kernel at the other shapes
+    from multimodal_umap_tpu_torch.ops.knn import _exact_rescore_sq
+
     tk = KT.bf16_tile_k(K, N_TRAIN - 1)
-    qb = images[:BLOCK_ROWS].to(torch.bfloat16)
-    rb = images.to(torch.bfloat16)
-    ms = cuda_ms(lambda: KT.knn_tile(qb, rb, tk, exclude_self=True), 10)
+    cand = max(4 * K, 64)
+    q32 = images[:BLOCK_ROWS]
+    qb, rb = q32.to(torch.bfloat16), images.to(torch.bfloat16)
+    q_sq, r_sq = KT.row_norms_sq(qb), KT.row_norms_sq(rb)
+
+    def tile():
+        return KT.knn_tile(qb, rb, tk, exclude_self=True, q_sq=q_sq, r_sq=r_sq)
+
+    d_c, i_c = tile()
+
+    def merge():
+        cand_d = d_c.permute(1, 0, 2).reshape(BLOCK_ROWS, -1)
+        cand_i = i_c.permute(1, 0, 2).reshape(BLOCK_ROWS, -1)
+        _, pos = torch.topk(cand_d, cand, dim=1, largest=False)
+        return cand_i.gather(1, pos)
+
+    ids_c = merge()
+    rows = torch.arange(BLOCK_ROWS, device=dev)[:, None]
+
+    def rescore():
+        d2 = _exact_rescore_sq(q32, images, ids_c.clamp(0, N_TRAIN - 1),
+                               chunk=512)
+        d2 = d2.masked_fill((ids_c >= N_TRAIN) | (ids_c == rows), float("inf"))
+        vals, sel = torch.topk(d2, K, dim=1, largest=False)
+        return vals, ids_c.gather(1, sel)
+
+    def bound_ms(nq, n, d, tile_k):
+        t_ops = 2.0 * nq * n * d / H100_BF16_FLOPS * 1e3
+        nbytes = (2.0 * (nq + n) * d + 4.0 * (nq + n)
+                  + 8.0 * -(-n // KT.TILE_C) * nq * tile_k)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    stages = {
+        "norm_prepass_ms": cuda_ms(lambda: (KT.row_norms_sq(qb),
+                                            KT.row_norms_sq(rb)), 10),
+        "tile_kernel_ms": cuda_ms(tile, 10),
+        "merge_topk_ms": cuda_ms(merge, 10),
+        "rescore_ms": cuda_ms(rescore, 10),
+    }
+    del d_c, i_c, ids_c
+    other = []
+    test_images = torch.from_numpy(test_np["images"]).to(dev)
+    for name, qo, ro, ex in (
+            ("fit block, D=768", texts[:BLOCK_ROWS], texts, True),
+            ("transform block, D=4096", test_images, images, False)):
+        qo, ro = qo.to(torch.bfloat16), ro.to(torch.bfloat16)
+        qs, rs = KT.row_norms_sq(qo), KT.row_norms_sq(ro)
+        b_ms, b_by = bound_ms(qo.shape[0], ro.shape[0], ro.shape[1], tk)
+        other.append({
+            "shape": name, "Q": qo.shape[0], "N": ro.shape[0],
+            "D": ro.shape[1], "tile_k": tk, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": cuda_ms(lambda: KT.knn_tile(qo, ro, tk, exclude_self=ex,
+                                              q_sq=qs, r_sq=rs), 10)})
+    emit({"phase": "knn_stages", "shape": {"Q": BLOCK_ROWS, "N": N_TRAIN,
+                                           "D": DIMS[1], "tile_k": tk,
+                                           "cand": cand, "k": K},
+          **stages, "tile_kernel_other_shapes": other})
+
+    # 7. kernels line: the fit graph's main-path block at D=4096, bf16
+    ms = stages["tile_kernel_ms"]
     plain_ms = cuda_ms(lambda: KT.knn_tile_plain(qb, rb, tk, exclude_self=True), 3)
-
-    def library():  # yardstick only: never called by the port
-        panel = torch.matmul(qb, rb.T)
-        return torch.topk(panel, K, dim=1)
-
-    library_ms = cuda_ms(library, 10)
-    nct = -(-N_TRAIN // KT.TILE_C)
-    flops = 2.0 * BLOCK_ROWS * N_TRAIN * DIMS[1]
-    nbytes = 2.0 * (BLOCK_ROWS + N_TRAIN) * DIMS[1] + 8.0 * nct * BLOCK_ROWS * tk
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    library_ms = cuda_ms(lambda: library_tile_topk(
+        qb, rb, tk, KT.TILE_C, exclude_self=True), 10)
+    b_ms, b_by = bound_ms(BLOCK_ROWS, N_TRAIN, DIMS[1], tk)
+    rows_all = BLOCK_ROWS + N_TRAIN
+    n_bytes = 2.0 * rows_all * DIMS[1] + 4.0 * rows_all
+    n_ops = 2.0 * rows_all * DIMS[1]
+    t_nb = n_bytes / H100_BYTES_PER_S * 1e3
+    t_no = n_ops / H100_F32_FLOPS * 1e3
     print(json.dumps({"kernels": [{
         "name": "knn_tile",
         "route": "cuda",
@@ -303,10 +480,25 @@ def main() -> None:
         "max_abs_err": main_block_err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": b_ms,
+        "bound_by": b_by,
         "library_ms": library_ms,
         "shape": {"Q": BLOCK_ROWS, "N": N_TRAIN, "D": DIMS[1], "tile_k": tk,
+                  "mode": "bf16"},
+    }, {
+        "name": "knn_rownorm",
+        "route": "cuda",
+        "source": "multimodal_umap_tpu_torch/csrc/knn_tile.cu",
+        "replaces": "multimodal_umap_tpu/ops/knn_pallas.py:74",
+        "launches": norm_launches,
+        "max_abs_err": norm_err,
+        "ms": stages["norm_prepass_ms"],
+        "plain_ms": cuda_ms(lambda: (KT.row_norms_sq_plain(qb),
+                                     KT.row_norms_sq_plain(rb)), 10),
+        "bound_ms": max(t_nb, t_no),
+        "bound_by": "bytes" if t_nb >= t_no else "operations",
+        "library_ms": None,
+        "shape": {"rows": [BLOCK_ROWS, N_TRAIN], "D": DIMS[1],
                   "mode": "bf16"},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,59 +7,121 @@
 // reference rows r (N, D):
 //   panel[i, j] = max((-2 * q_i . r_j + |q_i|^2) + |r_j|^2, 0)
 // with column j >= N and, under exclude_self, j == row_offset + i set to
-// +inf; then, for every (row, 128-column tile), the tile_k smallest
+// +inf; then, for every (row, 256-column tile), the tile_k smallest
 // entries in ascending order, ties to the lowest column id, each column
 // taken at most once. Output: (num_col_tiles, Q, tile_k) f32 squared
 // distances and int32 global column ids. The cross-tile merge and the f32
 // re-score stay in the PyTorch wrapper (ops/knn_tile.py), as they were
 // XLA outside the kernel on the TPU.
 //
-// Design for this card (not a block-by-block copy of the Pallas kernel):
-//   * the grid is (row tiles of 64, column tiles of 128); the TPU's
-//     sequential D grid axis is a loop inside the block, staging 32-wide
-//     D slices of q and r in shared memory and keeping the 64x128 panel
-//     in registers (8 warps, 32x32 each);
-//   * bf16 mode: mma.sync m16n8k16 bf16 -> f32 on the tensor cores;
-//     f32 mode: f32 FMA on the CUDA cores (never TF32, which keeps only
-//     ~3 decimal digits). Both modes accumulate the row squared norms in
-//     the same loop from the values loaded, i.e. the bf16-rounded values
-//     in bf16 mode, so the bf16 panel is the exact squared distance of
-//     the rounded vectors;
-//   * epilogue: the panel goes through shared memory (aliasing the
-//     staging buffers); one warp per row runs tile_k warp-shuffle argmin
-//     rounds over the row's 128 entries (4 per lane).
-//
 // Bound on an H100 SXM: bf16 mode does 2*Q*N*D operations at the
-// 989 TFLOP/s dense bf16 rate (8.4 ms for the 31,744^2 D=4096 fit graph,
-// 1.6 ms at D=768) while its inputs are ~260 MB of bf16 (~0.08 ms at
-// 3.35 TB/s), so it is bound by operations. This first version is the
-// simple form (synchronous staging, mma.sync); wgmma and TMA come later.
+// 989 TFLOP/s dense bf16 rate (2.154 ms for the 8,192 x 31,744 x 4,096
+// fit block, 0.404 ms at D=768, 0.269 ms for the 1,024-row transform
+// block) while its inputs, norms and outputs move ~0.59 GB (0.18 ms at
+// 3.35 TB/s), so it is bound by operations.
 //
-// C entry point `knn_tile_launch`, bound with ctypes; it launches on the
-// given stream, never synchronizes, allocates nothing and returns
-// cudaGetLastError().
+// bf16 mode (the main path), designed for Hopper:
+//   * norm pre-pass: `rownorm_bf16_kernel` computes |x|^2 in f32 of the
+//     bf16 rows once per call (one warp per row), so the panel is the
+//     exact squared distance of the rounded vectors and no block
+//     recomputes the norms of its rows;
+//   * one block per 128 x 256 output tile (1-D grid, row tiles grouped
+//     16 at a time so that a wave's q and r tiles stay in the 50 MB L2);
+//     384 threads: two consumer warpgroups (64 rows x 256 columns each)
+//     and one producer warpgroup, whose one thread keeps a ring of 4
+//     stages full. A stage is one 64-wide D slice of the q tile (16 KB)
+//     and of the r tile (32 KB), loaded by TMA with the 128-byte swizzle;
+//     TMA's zero fill covers ragged Q and N edges (D is padded to 64 by
+//     the wrapper); full / empty mbarriers pace the ring;
+//   * the product is q . r^T with both operands K-major in shared
+//     memory: `wgmma.mma_async m64n256k16` bf16 -> f32, 4 per stage per
+//     consumer warpgroup, 128 accumulators a thread; one wgmma group
+//     stays in flight while the previous stage is released. setmaxnreg
+//     gives the consumers 232 registers and the producer 40 for the main
+//     loop, then 168 to all 12 warps for the selection;
+//   * epilogue: the 128 x 256 panel goes to shared memory (aliasing the
+//     ring, which is dead by then) and all 12 warps select, one warp per
+//     row (8 columns a lane), two rows at a time, with a threshold search
+//     instead of tile_k argmin rounds: the tile_k-th smallest key T is
+//     found by bisection on the f32 bit patterns (distances are >= 0 and
+//     -0 is made +0, so bits order like values) between the row's
+//     minimum and its largest finite key, one `__reduce_add_sync` count
+//     per step (each lane counts its 8 keys from the sign bits of
+//     mid - key), stopping early at a count of exactly tile_k (at most 31
+//     steps); the keys <= T (with ties at T: the keys < T and the
+//     lowest-column keys == T) are compacted with ballots in column order
+//     as unique 64-bit (key << 8 | column) words, and each survivor's
+//     output slot is its rank among the tile_k survivors, read from
+//     shared memory. Per (row, tile): no warp shuffle at all; at most 34
+//     warp reductions and 8 ballots (32 with ties at T). The first
+//     version's argmin rounds took 320 shuffles per (row, 128-column tile).
+//
+// Measured on an H100 80GB HBM3 (700 W), chip_smoke.py and
+// compare_knn_tile.py: 4.0-4.3 ms for the fit block above (the first
+// version: 20.4 ms). The selection, not the main loop, is what keeps the
+// kernel from its bound: it is instruction-issue bound (hence the
+// branch-free bisection update) and does not overlap the tensor cores
+// (see PERF.md).
+//
+// f32 mode (explicit only): the CUDA-core FMA panel of the first version
+// (never TF32; 64 x 128 halves, 32-wide D slices, norms accumulated from
+// the loaded values), two halves per 256-column tile, then the same
+// selection.
+//
+// C entry points, bound with ctypes; they launch on the given stream,
+// never synchronize, allocate nothing and return cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE_R = 64;
-constexpr int TILE_C = 128;
-constexpr int TILE_D = 32;
-constexpr int THREADS = 256;
-constexpr int PANEL_LD = TILE_C + 1;   // f32 panel row stride
-constexpr int BF_LD = TILE_D + 8;      // bf16 staging row stride (80 bytes)
-constexpr int F_LDQ = TILE_R + 4;      // f32 staging, d-major
-constexpr int F_LDR = TILE_C + 4;
+constexpr int TILE_C = 256;           // column tile of the output contract
+constexpr int KPL = TILE_C / 32;      // panel columns per lane in selection
+constexpr int PANEL_LD = TILE_C + 8;  // f32 panel row stride
+constexpr int SEL_ROWS = 2;           // rows a warp selects at once
+// survivor scratch: TILE_C 64-bit entries per row in flight
+constexpr int SCR_WORDS = 2 * TILE_C;
+static_assert(TILE_C <= 256, "columns in a tile must fit 8 bits");
+constexpr uint32_t INF_BITS = 0x7f800000u;
 
-constexpr int PANEL_BYTES = TILE_R * PANEL_LD * 4;
-constexpr int BF_STAGE_BYTES = (TILE_R + TILE_C) * BF_LD * 2;
-constexpr int F_STAGE_BYTES = TILE_D * (F_LDQ + F_LDR) * 4;
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-constexpr int SMEM_BYTES =
-    cmax(PANEL_BYTES, cmax(BF_STAGE_BYTES, F_STAGE_BYTES));
+// ---- bf16 mode geometry ----
+constexpr int BM = 128;                     // rows per block
+constexpr int BK = 64;                      // D slice: 128 bytes of bf16
+constexpr int STAGES = 4;
+constexpr int CONSUMER_REGS = 232;  // main loop: 128 accumulators a thread
+constexpr int SEL_REGS = 168;       // selection: every warp alike
+constexpr int BF_THREADS = 384;  // 2 consumer warpgroups + 1 producer WG
+constexpr int SEL_WARPS = BF_THREADS / 32;  // all warps select
+constexpr int GROUP_M = 16;                 // row tiles per raster group
+constexpr int Q_STAGE_BYTES = BM * BK * 2;      // 16 KB
+constexpr int R_STAGE_BYTES = TILE_C * BK * 2;  // 32 KB
+constexpr int STAGE_BYTES = Q_STAGE_BYTES + R_STAGE_BYTES;
+constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+constexpr int BAR_OFF = RING_BYTES;
+constexpr int QN_OFF = BAR_OFF + 2 * STAGES * 8;
+constexpr int RN_OFF = QN_OFF + BM * 4;
+constexpr int BF_END = RN_OFF + TILE_C * 4;
+constexpr int BF_SCR_OFF = BM * PANEL_LD * 4;  // after the panel, in the ring
+constexpr int BF_SMEM_BYTES = BF_END + 1024;   // + slack for 1 KB alignment
+static_assert(BF_SCR_OFF + SEL_WARPS * SEL_ROWS * SCR_WORDS * 4 <= RING_BYTES,
+              "epilogue > ring");
+
+// ---- f32 mode geometry ----
+constexpr int FR = 64;          // rows per block
+constexpr int F_HALF = 128;     // columns per panel pass
+constexpr int F_TILE_D = 32;
+constexpr int F_THREADS = 256;
+constexpr int F_LDQ = FR + 4;
+constexpr int F_LDR = F_HALF + 4;
+constexpr int F_STAGE_OFF = FR * PANEL_LD * 4;
+constexpr int F_SCR_OFF = F_STAGE_OFF + F_TILE_D * (F_LDQ + F_LDR) * 4;
+constexpr int F_QSQ_OFF =
+    F_SCR_OFF + (F_THREADS / 32) * SEL_ROWS * SCR_WORDS * 4;
+constexpr int F_RSQ_OFF = F_QSQ_OFF + FR * 4;
+constexpr int F_SMEM_BYTES = F_RSQ_OFF + TILE_C * 4;
 
 __device__ __forceinline__ float sumsq_bf16x8(uint4 v) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -73,117 +135,396 @@ __device__ __forceinline__ float sumsq_bf16x8(uint4 v) {
   return s;
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ---------------------------------------------------------------------------
+// Selection: rows of a shared-memory panel of raw dot products, one warp per
+// SEL_ROWS rows at a time (independent searches interleaved, to hide the
+// latency of the warp reductions). Lane `lane` holds columns s*32 + lane,
+// s = 0..7, of each row.
+__device__ __forceinline__ void select_rows(
+    const float* panel, const float* q_sq, const float* r_sq, int rows,
+    int warp, int nwarps, uint64_t* scr, int row0, int col0, int ct, int Q,
+    int N, int tile_k, int row_offset, int exclude_self,
+    float* __restrict__ d_out, int* __restrict__ i_out) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned lt_mask = (1u << lane) - 1u;
+  const int tk2 = (tile_k + 1) & ~1;
+  float rn[KPL];  // the lane's column norms: the same for every row
+#pragma unroll
+  for (int s = 0; s < KPL; ++s) rn[s] = r_sq[s * 32 + lane];
+  for (int rb = warp * SEL_ROWS; rb < rows; rb += nwarps * SEL_ROWS) {
+    if (row0 + rb >= Q) break;  // warp-uniform; later rows are padding too
+    uint32_t key[SEL_ROWS][KPL], lo[SEL_ROWS], hi[SEL_ROWS], cnt[SEL_ROWS];
+#pragma unroll
+    for (int r = 0; r < SEL_ROWS; ++r) {
+      const int rr = rb + r, grow = row_offset + row0 + rr;
+      const float qq = q_sq[rr];
+      uint32_t kmin = INF_BITS, kmax_fin = 0u, nfin = KPL;
+      // Masks reach a row only in the last column tile or the self tile.
+      const bool masked = col0 + TILE_C > N ||
+                          (exclude_self && (unsigned)(grow - col0) < TILE_C);
+#pragma unroll
+      for (int s = 0; s < KPL; ++s) {
+        const float x =
+            fmaxf((-2.f * panel[rr * PANEL_LD + s * 32 + lane] + qq) + rn[s],
+                  0.f);
+        key[r][s] = __float_as_uint(x) & 0x7fffffffu;  // -0 -> +0
+      }
+      if (masked) {
+        nfin = 0u;
+#pragma unroll
+        for (int s = 0; s < KPL; ++s) {
+          const int gc = col0 + s * 32 + lane;
+          if (gc >= N || (exclude_self && gc == grow)) key[r][s] = INF_BITS;
+          if (key[r][s] < INF_BITS) {
+            kmax_fin = max(kmax_fin, key[r][s]);
+            ++nfin;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < KPL; ++s) kmax_fin = max(kmax_fin, key[r][s]);
+      }
+#pragma unroll
+      for (int s = 0; s < KPL; ++s) kmin = min(kmin, key[r][s]);
+      lo[r] = __reduce_min_sync(full, kmin);
+      hi[r] = __reduce_max_sync(full, kmax_fin);
+      // Too few finite keys: the finite ones and then +inf columns.
+      if (__reduce_add_sync(full, nfin) < (uint32_t)tile_k)
+        lo[r] = hi[r] = INF_BITS;
+    }
+    // Bisection for T: the smallest key value with #(key <= T) >= tile_k,
+    // or any value with #(key <= T) == tile_k, which ends it early.
+    for (;;) {
+      bool open = false;
+#pragma unroll
+      for (int r = 0; r < SEL_ROWS; ++r) open |= lo[r] < hi[r];
+      if (!open) break;
+      uint32_t mid[SEL_ROWS], c[SEL_ROWS];
+#pragma unroll
+      for (int r = 0; r < SEL_ROWS; ++r) {
+        mid[r] = lo[r] + ((hi[r] - lo[r]) >> 1);
+        // Keys are < 2^31: mid - key is negative exactly when key > mid,
+        // so its sign bit counts the keys above mid (two chains for ILP).
+        uint32_t c0 = KPL, c1 = 0u;
+#pragma unroll
+        for (int s = 0; s < KPL; s += 2) {
+          c0 -= (mid[r] - key[r][s]) >> 31;
+          c1 += (mid[r] - key[r][s + 1]) >> 31;
+        }
+        c[r] = c0 - c1;
+      }
+#pragma unroll
+      for (int r = 0; r < SEL_ROWS; ++r) cnt[r] = __reduce_add_sync(full, c[r]);
+      // No branch and no guard for a settled row (lo == hi == T): there
+      // count(<= T) >= tile_k, so neither update moves it.
+#pragma unroll
+      for (int r = 0; r < SEL_ROWS; ++r) {
+        if (cnt[r] >= (uint32_t)tile_k) hi[r] = mid[r];
+        if (cnt[r] <= (uint32_t)tile_k)
+          lo[r] = mid[r] + (cnt[r] != (uint32_t)tile_k);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < SEL_ROWS; ++r) {
+      const uint32_t t = lo[r];
+      // The survivors, compacted in column order as (key << 8 | column in
+      // the tile): unique, ordered like the output. Without ties at T they
+      // are the keys <= T; with them, the keys < T and the lowest-column
+      // keys == T.
+      uint64_t* sk = scr + r * TILE_C;
+      unsigned take[KPL];  // ballots of the survivors, slot by slot
+      int n_le = 0;
+#pragma unroll
+      for (int s = 0; s < KPL; ++s) {
+        take[s] = __ballot_sync(full, key[r][s] <= t);
+        n_le += __popc(take[s]);
+      }
+      if (n_le != tile_k) {  // ties at T (warp-uniform)
+        int need = tile_k;   // keys == T to take, lowest columns first
+#pragma unroll
+        for (int s = 0; s < KPL; ++s)
+          need -= __popc(__ballot_sync(full, key[r][s] < t));
+        int eq_run = 0;
+#pragma unroll
+        for (int s = 0; s < KPL; ++s) {
+          const bool eq = key[r][s] == t;
+          const unsigned be = __ballot_sync(full, eq);
+          take[s] = __ballot_sync(
+              full,
+              key[r][s] < t || (eq && eq_run + __popc(be & lt_mask) < need));
+          eq_run += __popc(be);
+        }
+      }
+      int pos_run = 0;
+#pragma unroll
+      for (int s = 0; s < KPL; ++s) {
+        if ((take[s] >> lane) & 1u)
+          sk[pos_run + __popc(take[s] & lt_mask)] =
+              (uint64_t)key[r][s] << 8 | (uint32_t)(s * 32 + lane);
+        pos_run += __popc(take[s]);
+      }
+      // Pad to an even count with a word above every key (< 2^39).
+      if (lane < tk2 - tile_k) sk[tile_k + lane] = 1ull << 62;
+    }
+    __syncwarp();
+    // Each survivor's slot is its rank among the tile_k survivors.
+#pragma unroll
+    for (int r = 0; r < SEL_ROWS; ++r) {
+      const int qrow = row0 + rb + r;
+      if (qrow >= Q) break;
+      const uint64_t* sk = scr + r * TILE_C;
+      float* drow = d_out + ((size_t)ct * Q + qrow) * tile_k;
+      int* irow = i_out + ((size_t)ct * Q + qrow) * tile_k;
+      for (int j = lane; j < tile_k; j += 32) {
+        const uint64_t v = sk[j];
+        // Words are < 2^39, so w - v wraps to its top bit exactly when
+        // w < v: two independent sums, no predicate chain.
+        uint32_t rank0 = 0u, rank1 = 0u;
+#pragma unroll 4
+        for (int i = 0; i < tk2; i += 2) {
+          const ulonglong2 w = *reinterpret_cast<const ulonglong2*>(sk + i);
+          rank0 += (uint32_t)((w.x - v) >> 63);
+          rank1 += (uint32_t)((w.y - v) >> 63);
+        }
+        const uint32_t rank = rank0 + rank1;
+        drow[rank] = __uint_as_float((uint32_t)(v >> 8));
+        irow[rank] = col0 + (int)(v & 0xffu);
+      }
+    }
+    __syncwarp();
+  }
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
+// ---------------------------------------------------------------------------
+// bf16 mode: PTX helpers.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 
-// Dot products q_i . r_j of the block's 64x128 tile, bf16 tensor cores.
-// Leaves them in `panel` and the squared norms in q_sq / r_sq.
-__device__ __forceinline__ void panel_bf16(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ r,
-    int Q, int N, int D, int row0, int col0, unsigned char* smem,
-    float* q_sq, float* r_sq) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* rs = qs + TILE_R * BF_LD;
-  const int lrow = tid >> 2;          // staging row 0..63
-  const int lchunk = (tid & 3) * 8;   // 8 bf16 = 16 bytes
-  const int gq = row0 + lrow, gr0 = col0 + lrow, gr1 = col0 + 64 + lrow;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, tg = lane & 3;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-  float qn = 0.f, rn0 = 0.f, rn1 = 0.f;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int d0 = 0; d0 < D; d0 += TILE_D) {
-    uint4 vq = zero, vr0 = zero, vr1 = zero;
-    if (gq < Q)
-      vq = *reinterpret_cast<const uint4*>(q + (size_t)gq * D + d0 + lchunk);
-    if (gr0 < N)
-      vr0 = *reinterpret_cast<const uint4*>(r + (size_t)gr0 * D + d0 + lchunk);
-    if (gr1 < N)
-      vr1 = *reinterpret_cast<const uint4*>(r + (size_t)gr1 * D + d0 + lchunk);
-    qn += sumsq_bf16x8(vq);
-    rn0 += sumsq_bf16x8(vr0);
-    rn1 += sumsq_bf16x8(vr1);
-    *reinterpret_cast<uint4*>(qs + lrow * BF_LD + lchunk) = vq;
-    *reinterpret_cast<uint4*>(rs + lrow * BF_LD + lchunk) = vr0;
-    *reinterpret_cast<uint4*>(rs + (64 + lrow) * BF_LD + lchunk) = vr1;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TILE_D; kk += 16) {
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const __nv_bfloat16* base = qs + (wm * 32 + mi * 16 + g) * BF_LD + kk + tg * 2;
-        af[mi][0] = ld32(base);
-        af[mi][1] = ld32(base + 8 * BF_LD);
-        af[mi][2] = ld32(base + 8);
-        af[mi][3] = ld32(base + 8 * BF_LD + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const __nv_bfloat16* base = rs + (wn * 32 + ni * 8 + g) * BF_LD + kk + tg * 2;
-        bfr[ni][0] = ld32(base);
-        bfr[ni][1] = ld32(base + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
-    }
-    __syncthreads();
-  }
-
-  // Norms: the 4 lanes sharing a staging row hold its partial sums.
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    qn += __shfl_xor_sync(0xffffffffu, qn, off);
-    rn0 += __shfl_xor_sync(0xffffffffu, rn0, off);
-    rn1 += __shfl_xor_sync(0xffffffffu, rn1, off);
-  }
-  if ((tid & 3) == 0) {
-    q_sq[lrow] = qn;
-    r_sq[lrow] = rn0;
-    r_sq[64 + lrow] = rn1;
-  }
-  float* panel = reinterpret_cast<float*>(smem);  // staging is dead now
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int rr = wm * 32 + mi * 16 + g;
-      const int cc = wn * 32 + ni * 8 + tg * 2;
-      panel[rr * PANEL_LD + cc] = acc[mi][ni][0];
-      panel[rr * PANEL_LD + cc + 1] = acc[mi][ni][1];
-      panel[(rr + 8) * PANEL_LD + cc] = acc[mi][ni][2];
-      panel[(rr + 8) * PANEL_LD + cc + 1] = acc[mi][ni][3];
-    }
+// K-major operand, 128-byte rows swizzled by TMA: 8-row groups 1 KB apart.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// The same tile in full f32 on the CUDA cores (4x8 outputs per thread).
-__device__ __forceinline__ void panel_f32(
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t a,
+                                                 uint64_t b) {
+#define F8(i)                                                        \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),    \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56),
+        F8(64), F8(72), F8(80), F8(88), F8(96), F8(104), F8(112), F8(120)
+      : "l"(a), "l"(b), "r"(1));
+#undef F8
+}
+
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < TILE_C / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__global__ void rownorm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                    float* __restrict__ out, int rows, int D) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const uint4* p = reinterpret_cast<const uint4*>(x + (size_t)row * D);
+  float s = 0.f;
+  for (int i = lane; i < D / 8; i += 32) s += sumsq_bf16x8(p[i]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) out[row] = s;
+}
+
+__global__ void __launch_bounds__(BF_THREADS, 1)
+knn_tile_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_r,
+                     const float* __restrict__ q_sq,
+                     const float* __restrict__ r_sq, float* __restrict__ d_out,
+                     int* __restrict__ i_out, int Q, int N, int nk, int tile_k,
+                     int row_offset, int exclude_self, int n_row, int n_col) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // Align to 1 KB (the 128-byte swizzle) by an offset, not through an
+  // integer cast, so the compiler keeps shared-memory loads and stores.
+  unsigned char* smem =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full_bar = base + BAR_OFF;
+  const uint32_t empty_bar = full_bar + STAGES * 8;
+
+  // Grouped raster: GROUP_M row tiles walk the column tiles together.
+  const int group = GROUP_M * n_col;
+  const int first = (blockIdx.x / group) * GROUP_M;
+  const int gsz = min(n_row - first, GROUP_M);
+  const int in_group = blockIdx.x % group;
+  const int row0 = (first + in_group % gsz) * BM;
+  const int ct = in_group / gsz;
+  const int col0 = ct * TILE_C;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* panel = reinterpret_cast<float*>(smem);
+  float* qn = reinterpret_cast<float*>(smem + QN_OFF);
+  float* rn = reinterpret_cast<float*>(smem + RN_OFF);
+  uint64_t* scr = reinterpret_cast<uint64_t*>(smem + BF_SCR_OFF) +
+                  warp * SEL_ROWS * TILE_C;
+  // Each role runs to the end in its own branch (setmaxnreg needs it); the
+  // selection is the same code in both.
+  if (wg == 2) {
+    // ---- producer warpgroup: one thread issues the TMA loads ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(empty_bar + 8 * stage, phase ^ 1u);
+        const uint32_t fb = full_bar + 8 * stage;
+        mbar_expect_tx(fb, STAGE_BYTES);
+        const uint32_t dq = base + stage * STAGE_BYTES;
+        tma_load_2d(dq, &tm_q, kb * BK, row0, fb);
+        tma_load_2d(dq + Q_STAGE_BYTES, &tm_r, kb * BK, col0, fb);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    // Take the registers the consumers give back, then select with them.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(SEL_REGS));
+    asm volatile("bar.sync 2, %0;\n" ::"n"(BF_THREADS) : "memory");
+    select_rows(panel, qn, rn, BM, warp, SEL_WARPS, scr, row0, col0, ct, Q, N,
+                tile_k, row_offset, exclude_self, d_out, i_out);
+  } else {
+    // ---- consumer warpgroups: rows wg*64 .. wg*64+63 of the tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int stage = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(full_bar + 8 * stage, phase);
+      const uint32_t sq = base + stage * STAGE_BYTES;
+      const uint64_t da = wgmma_desc(sq + wg * (64 * BK * 2));
+      const uint64_t db = wgmma_desc(sq + Q_STAGE_BYTES);
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k)  // 32 bytes per k step
+        wgmma_m64n256k16(acc, da + 2 * k, db + 2 * k);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_acc(acc);
+      if (kb > 0) mbar_arrive(empty_bar + 8 * prev);
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+
+    // Both consumer warpgroups are done with the ring: it becomes the panel.
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    {
+      const int prow = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+      const int pcol = (lane & 3) * 2;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        float* p0 = panel + prow * PANEL_LD + j * 8 + pcol;
+        *reinterpret_cast<float2*>(p0) = make_float2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<float2*>(p0 + 8 * PANEL_LD) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+    const int ctid = threadIdx.x;  // 0..255
+    if (ctid < BM) qn[ctid] = row0 + ctid < Q ? q_sq[row0 + ctid] : 0.f;
+    rn[ctid] = col0 + ctid < N ? r_sq[col0 + ctid] : 0.f;
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(SEL_REGS));
+    asm volatile("bar.sync 2, %0;\n" ::"n"(BF_THREADS) : "memory");
+    select_rows(panel, qn, rn, BM, warp, SEL_WARPS, scr, row0, col0, ct, Q, N,
+                tile_k, row_offset, exclude_self, d_out, i_out);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 mode: one 64 x 128 half of the tile on the CUDA cores (4x8 outputs a
+// thread), written to `panel` (already offset to the half's first column).
+__device__ __forceinline__ void panel_f32_half(
     const float* __restrict__ q, const float* __restrict__ r, int Q, int N,
-    int D, int row0, int col0, unsigned char* smem, float* q_sq, float* r_sq) {
+    int D, int row0, int col0, float* stage, float* panel, float* q_sq,
+    float* r_sq) {
   const int tid = threadIdx.x;
-  float* qs = reinterpret_cast<float*>(smem);   // [TILE_D][F_LDQ]
-  float* rs = qs + TILE_D * F_LDQ;              // [TILE_D][F_LDR]
+  float* qs = stage;                  // [F_TILE_D][F_LDQ]
+  float* rs = qs + F_TILE_D * F_LDQ;  // [F_TILE_D][F_LDR]
   const int ty = tid >> 4, tx = tid & 15;
   const int vrow = tid >> 3, vd = (tid & 7) * 4;  // float4 staging slot
 
@@ -195,7 +536,7 @@ __device__ __forceinline__ void panel_f32(
   float qn[2] = {0.f, 0.f}, rn[4] = {0.f, 0.f, 0.f, 0.f};
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int d0 = 0; d0 < D; d0 += TILE_D) {
+  for (int d0 = 0; d0 < D; d0 += F_TILE_D) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int row = vrow + 32 * j, gq = row0 + row;
@@ -220,7 +561,7 @@ __device__ __forceinline__ void panel_f32(
     }
     __syncthreads();
 #pragma unroll 8
-    for (int d = 0; d < TILE_D; ++d) {
+    for (int d = 0; d < F_TILE_D; ++d) {
       float a[4], b[8];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = qs[d * F_LDQ + ty * 4 + i];
@@ -248,7 +589,6 @@ __device__ __forceinline__ void panel_f32(
 #pragma unroll
     for (int j = 0; j < 4; ++j) r_sq[vrow + 32 * j] = rn[j];
   }
-  float* panel = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -256,97 +596,95 @@ __device__ __forceinline__ void panel_f32(
       panel[(ty * 4 + i) * PANEL_LD + tx + 16 * j] = acc[i][j];
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(THREADS)
-knn_tile_kernel(const void* __restrict__ q_ptr, const void* __restrict__ r_ptr,
-                float* __restrict__ d_out, int* __restrict__ i_out, int Q,
-                int N, int D, int tile_k, int row_offset, int exclude_self) {
-  __shared__ __align__(16) unsigned char smem[SMEM_BYTES];
-  __shared__ float q_sq[TILE_R];
-  __shared__ float r_sq[TILE_C];
-  const int row0 = blockIdx.x * TILE_R;
+__global__ void __launch_bounds__(F_THREADS)
+knn_tile_f32_kernel(const float* __restrict__ q, const float* __restrict__ r,
+                    float* __restrict__ d_out, int* __restrict__ i_out, int Q,
+                    int N, int D, int tile_k, int row_offset,
+                    int exclude_self) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* panel = reinterpret_cast<float*>(smem);
+  float* stage = reinterpret_cast<float*>(smem + F_STAGE_OFF);
+  float* q_sq = reinterpret_cast<float*>(smem + F_QSQ_OFF);
+  float* r_sq = reinterpret_cast<float*>(smem + F_RSQ_OFF);
+  const int row0 = blockIdx.x * FR;
   const int col0 = blockIdx.y * TILE_C;
-
-  if (BF16)
-    panel_bf16(reinterpret_cast<const __nv_bfloat16*>(q_ptr),
-               reinterpret_cast<const __nv_bfloat16*>(r_ptr), Q, N, D, row0,
-               col0, smem, q_sq, r_sq);
-  else
-    panel_f32(reinterpret_cast<const float*>(q_ptr),
-              reinterpret_cast<const float*>(r_ptr), Q, N, D, row0, col0,
-              smem, q_sq, r_sq);
+  for (int h = 0; h < TILE_C / F_HALF; ++h)
+    panel_f32_half(q, r, Q, N, D, row0, col0 + h * F_HALF, stage,
+                   panel + h * F_HALF, q_sq, r_sq + h * F_HALF);
   __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  uint64_t* scr = reinterpret_cast<uint64_t*>(smem + F_SCR_OFF) +
+                  warp * SEL_ROWS * TILE_C;
+  select_rows(panel, q_sq, r_sq, FR, warp, F_THREADS / 32, scr, row0, col0,
+              blockIdx.y, Q, N, tile_k, row_offset, exclude_self, d_out, i_out);
+}
 
-  const float* panel = reinterpret_cast<const float*>(smem);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float inf = __int_as_float(0x7f800000);
-  for (int rr = warp; rr < TILE_R; rr += THREADS / 32) {
-    const int qrow = row0 + rr;
-    if (qrow >= Q) break;  // warp-uniform; later rows are padding too
-    const int grow = row_offset + qrow;
-    const float qq = q_sq[rr];
-    float v[4];
-    int c[4];
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int lc = lane + 32 * s, gc = col0 + lc;
-      float x = fmaxf((-2.f * panel[rr * PANEL_LD + lc] + qq) + r_sq[lc], 0.f);
-      if (gc >= N || (exclude_self && gc == grow)) x = inf;
-      v[s] = x;
-      c[s] = gc;
-    }
-    unsigned taken = 0u;
-    float* drow = d_out + ((size_t)blockIdx.y * Q + qrow) * tile_k;
-    int* irow = i_out + ((size_t)blockIdx.y * Q + qrow) * tile_k;
-    for (int t = 0; t < tile_k; ++t) {
-      float bv = inf;
-      int bc = 0x7fffffff;
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const bool better = v[s] < bv || (v[s] == bv && c[s] < bc);
-        if (!((taken >> s) & 1u) && better) {
-          bv = v[s];
-          bc = c[s];
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oc = __shfl_xor_sync(0xffffffffu, bc, off);
-        if (ov < bv || (ov == bv && oc < bc)) {
-          bv = ov;
-          bc = oc;
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        if (c[s] == bc) taken |= 1u << s;
-      if (lane == 0) {
-        drow[t] = bv;
-        irow[t] = bc;
-      }
-    }
-  }
+int make_map(CUtensorMap* map, const void* ptr, int rows, int D, int box_rows) {
+  cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)D * 2};
+  cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  CUresult res = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int knn_tile_launch(const void* q, const void* r, void* d_out,
-                               void* i_out, int Q, int N, int D, int tile_k,
-                               int row_offset, int exclude_self, int bf16,
-                               void* stream) {
-  if (Q <= 0 || N <= 0 || D <= 0 || D % TILE_D != 0 || tile_k <= 0 ||
-      tile_k > TILE_C)
+extern "C" int knn_tile_smem_bytes(int bf16) {
+  return bf16 ? BF_SMEM_BYTES : F_SMEM_BYTES;
+}
+
+extern "C" int knn_rownorm_launch(const void* x, void* out, int rows, int D,
+                                  void* stream) {
+  if (rows <= 0 || D <= 0 || D % 8 != 0) return (int)cudaErrorInvalidValue;
+  const int per_block = 8;  // rows (warps) per 256-thread block
+  rownorm_bf16_kernel<<<(rows + per_block - 1) / per_block, 32 * per_block, 0,
+                        reinterpret_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<float*>(out),
+      rows, D);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int knn_tile_launch(const void* q, const void* r, const void* q_sq,
+                               const void* r_sq, void* d_out, void* i_out,
+                               int Q, int N, int D, int tile_k, int row_offset,
+                               int exclude_self, int bf16, void* stream) {
+  if (Q <= 0 || N <= 0 || D <= 0 || tile_k <= 0 || tile_k > TILE_C)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((Q + TILE_R - 1) / TILE_R, (N + TILE_C - 1) / TILE_C);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (bf16)
-    knn_tile_kernel<true><<<grid, THREADS, 0, s>>>(
-        q, r, reinterpret_cast<float*>(d_out), reinterpret_cast<int*>(i_out),
-        Q, N, D, tile_k, row_offset, exclude_self);
-  else
-    knn_tile_kernel<false><<<grid, THREADS, 0, s>>>(
-        q, r, reinterpret_cast<float*>(d_out), reinterpret_cast<int*>(i_out),
-        Q, N, D, tile_k, row_offset, exclude_self);
+  const int n_col = (N + TILE_C - 1) / TILE_C;
+  if (bf16) {
+    if (D % BK != 0 || q_sq == nullptr || r_sq == nullptr)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap tm_q, tm_r;
+    int err = make_map(&tm_q, q, Q, D, BM);
+    if (!err) err = make_map(&tm_r, r, N, D, TILE_C);
+    if (err) return err;
+    err = (int)cudaFuncSetAttribute(knn_tile_bf16_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    BF_SMEM_BYTES);
+    if (err) return err;
+    const int n_row = (Q + BM - 1) / BM;
+    knn_tile_bf16_kernel<<<n_row * n_col, BF_THREADS, BF_SMEM_BYTES, s>>>(
+        tm_q, tm_r, reinterpret_cast<const float*>(q_sq),
+        reinterpret_cast<const float*>(r_sq), reinterpret_cast<float*>(d_out),
+        reinterpret_cast<int*>(i_out), Q, N, D / BK, tile_k, row_offset,
+        exclude_self, n_row, n_col);
+  } else {
+    if (D % F_TILE_D != 0) return (int)cudaErrorInvalidValue;
+    int err = (int)cudaFuncSetAttribute(
+        knn_tile_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        F_SMEM_BYTES);
+    if (err) return err;
+    dim3 grid((Q + FR - 1) / FR, n_col);
+    knn_tile_f32_kernel<<<grid, F_THREADS, F_SMEM_BYTES, s>>>(
+        reinterpret_cast<const float*>(q), reinterpret_cast<const float*>(r),
+        reinterpret_cast<float*>(d_out), reinterpret_cast<int*>(i_out), Q, N, D,
+        tile_k, row_offset, exclude_self);
+  }
   return (int)cudaGetLastError();
 }

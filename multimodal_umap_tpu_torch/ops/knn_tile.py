@@ -13,6 +13,11 @@ into the git-ignored ``build/`` directory at first use, binds it with
 * :func:`knn_tile` -- the wrapper. A CPU tensor takes the plain version;
   a CUDA tensor launches the kernel or raises (never a fallback). Every
   launch adds one to ``KNN_TILE_LAUNCHES``;
+* :func:`row_norms_sq` / :func:`row_norms_sq_plain` -- the bf16 mode's
+  norm pre-pass (a second kernel in the same source, counted in
+  ``ROW_NORM_LAUNCHES``) and its plain version;
+* :func:`launch_geometry` -- padded D, tiles, blocks and shared memory
+  of a launch, in Python so that the CPU tests reach it;
 * :func:`knn_tiled` -- the ``knn_pallas`` contract around it: row blocks
   of 8192 queries (bounding the candidate buffer), the exact cross-tile
   merge with ``torch.topk`` and, in bf16 mode, the widened candidate set
@@ -31,58 +36,118 @@ import hashlib
 import os
 import subprocess
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
-TILE_C = 128  # column tile of the kernel (csrc/knn_tile.cu)
-TILE_D = 32  # D slice of the kernel: D is zero-padded to a multiple
+TILE_C = 256  # column tile of the kernel and of the output contract
+TILE_D = 64  # bf16 D slice of the kernel (one 128-byte TMA box row)
+F32_TILE_D = 32  # f32 D slice; D is zero-padded to a multiple of the slice
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "knn_tile.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_SOURCES = (_CSRC / "knn_tile.cu",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
-# Launches of the CUDA kernel in this process (plain-version calls on
-# CPU tensors do not count).
+# Launches of the CUDA tile kernel in this process (plain-version calls on
+# CPU tensors do not count, nor does the norm pre-pass).
 KNN_TILE_LAUNCHES = 0
-# Seconds the last nvcc build took (None: nothing built in this process).
+# Launches of the bf16 row-norm pre-pass kernel.
+ROW_NORM_LAUNCHES = 0
+# Seconds the last nvcc build took (None: nothing built in this process),
+# the build's ptxas report (kept beside the library) and the library.
 BUILD_SECONDS: float | None = None
 BUILD_LOG = ""
+SO_PATH: Path | None = None
 
 _lib = None
 
 
+@dataclass(frozen=True)
+class Geometry:
+    """Launch geometry of one tile-kernel call (mirrors csrc/knn_tile.cu)."""
+
+    d_pad: int  # D after zero padding
+    block_rows: int  # query rows per block
+    col_tiles: int  # output column tiles (TILE_C wide)
+    blocks: int  # blocks launched
+    threads: int  # threads per block
+    smem_bytes: int  # dynamic shared memory per block
+    stages: int  # D slices in flight (bf16 TMA ring); 0 in f32 mode
+
+
+def launch_geometry(nq: int, n: int, d: int, bf16: bool) -> Geometry:
+    """The tile kernel's launch geometry for q (nq, d), r (n, d)."""
+    slice_d = TILE_D if bf16 else F32_TILE_D
+    d_pad = -(-d // slice_d) * slice_d
+    col_tiles = _num_col_tiles(n)
+    if bf16:
+        stages, rows = 4, 128
+        stage_bytes = (rows + TILE_C) * TILE_D * 2
+        # ring + full/empty mbarriers + row/column norms + 1 KB alignment
+        smem = stages * stage_bytes + 2 * stages * 8 + 4 * (rows + TILE_C) + 1024
+        threads = 384
+    else:
+        stages, rows, threads = 0, 64, 256
+        ld = TILE_C + 8
+        smem = 4 * (rows * ld + F32_TILE_D * (rows + 4 + 128 + 4)
+                    + (threads // 32) * 2 * 2 * TILE_C
+                    + rows + TILE_C)
+    return Geometry(d_pad=d_pad, block_rows=rows, col_tiles=col_tiles,
+                    blocks=-(-nq // rows) * col_tiles, threads=threads,
+                    smem_bytes=smem, stages=stages)
+
+
+def _nvcc_cmd(cuda_home: str, out: Path) -> list[str]:
+    stubs = [p for p in (os.path.join(cuda_home, "lib64", "stubs"),
+                         os.path.join(cuda_home, "targets", "x86_64-linux",
+                                      "lib", "stubs")) if os.path.isdir(p)]
+    return [
+        os.path.join(cuda_home, "bin", "nvcc"),
+        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", str(out), *map(str, _SOURCES),
+        *[f"-L{p}" for p in stubs], "-lcuda",
+    ]
+
+
 def build() -> ctypes.CDLL:
-    """Compiles ``csrc/knn_tile.cu`` (once per source content) and
-    returns the bound library."""
-    global _lib, BUILD_SECONDS, BUILD_LOG
+    """Compiles ``csrc/knn_tile.cu`` (once per source content and nvcc
+    command) and returns the bound library."""
+    global _lib, BUILD_SECONDS, BUILD_LOG, SO_PATH
     if _lib is not None:
         return _lib
-    tag = hashlib.sha1(_SRC.read_bytes()).hexdigest()[:12]
-    so = _BUILD_DIR / f"knn_tile_{tag}.so"
-    if not so.exists():
-        from torch.utils.cpp_extension import CUDA_HOME
+    from torch.utils.cpp_extension import CUDA_HOME
 
-        if CUDA_HOME is None:
-            raise RuntimeError("nvcc not found: no CUDA toolkit (CUDA_HOME)")
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: no CUDA toolkit (CUDA_HOME)")
+    h = hashlib.sha1()
+    for src in _SOURCES:
+        h.update(src.read_bytes())
+    h.update(" ".join(_nvcc_cmd(CUDA_HOME, Path("x"))).encode())
+    so = _BUILD_DIR / f"knn_tile_{h.hexdigest()[:12]}.so"
+    if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [
-            os.path.join(CUDA_HOME, "bin", "nvcc"),
-            "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(tmp), str(_SRC),
-        ]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        res = subprocess.run(_nvcc_cmd(CUDA_HOME, tmp), capture_output=True,
+                             text=True, check=False)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
         BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = res.stderr
+        so.with_suffix(".log").write_text(res.stderr)
         os.replace(tmp, so)
+    BUILD_LOG = so.with_suffix(".log").read_text()
     lib = ctypes.CDLL(str(so))
     lib.knn_tile_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.knn_tile_launch.restype = ctypes.c_int
+    lib.knn_rownorm_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.knn_rownorm_launch.restype = ctypes.c_int
+    lib.knn_tile_smem_bytes.argtypes = [ctypes.c_int]
+    lib.knn_tile_smem_bytes.restype = ctypes.c_int
+    SO_PATH = so
     _lib = lib
     return lib
 
@@ -120,7 +185,7 @@ def knn_tile_plain(
 
     ``q`` (Q, D) and ``r`` (N, D) share one dtype: bfloat16 (bf16 mode)
     or float32. Returns ((num_col_tiles, Q, tile_k) f32 squared
-    distances, same-shape int32 global column ids): per 128-column tile
+    distances, same-shape int32 global column ids): per ``TILE_C``-column tile
     the ``tile_k`` smallest entries, ascending, ties to the lowest
     column. Columns >= N and, with ``exclude_self``, column
     ``row_offset + i`` for query row i are +inf.
@@ -146,6 +211,47 @@ def knn_tile_plain(
             ids.to(torch.int32).permute(1, 0, 2).contiguous())
 
 
+def row_norms_sq_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the norm pre-pass: |x_i|^2 in f32 of the rows of
+    ``x`` as they are (bf16-rounded values in bf16 mode)."""
+    xf = x.float()
+    return (xf * xf).sum(1)
+
+
+def _pad_d(x: torch.Tensor, d_pad: int) -> torch.Tensor:
+    if x.shape[1] != d_pad:
+        x = torch.nn.functional.pad(x, (0, d_pad - x.shape[1]))
+    return x.contiguous()
+
+
+def row_norms_sq(x: torch.Tensor) -> torch.Tensor:
+    """The norm pre-pass of the bf16 tile kernel: the plain version for a
+    CPU tensor, the CUDA kernel (one warp per row) for a CUDA bf16 one."""
+    global ROW_NORM_LAUNCHES
+    if x.dim() != 2:
+        raise ValueError(f"bad shape {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return row_norms_sq_plain(x)
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise ValueError(f"needs a bfloat16 CUDA tensor, got {x.dtype} on "
+                         f"{x.device}")
+    if x.shape[0] == 0 or x.shape[0] >= 2**31:
+        raise ValueError(f"row count {x.shape[0]} out of range")
+    x = _pad_d(x, -(-x.shape[1] // 8) * 8)
+    if x.data_ptr() % 16:  # the kernel loads 8 bf16 at a time
+        raise ValueError("x must be 16-byte aligned")
+    lib = build()
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.knn_rownorm_launch(
+            x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"row-norm kernel launch failed: CUDA error {err}")
+    ROW_NORM_LAUNCHES += 1
+    return out
+
+
 def knn_tile(
     q: torch.Tensor,
     r: torch.Tensor,
@@ -153,9 +259,13 @@ def knn_tile(
     *,
     exclude_self: bool = False,
     row_offset: int = 0,
+    q_sq: torch.Tensor | None = None,
+    r_sq: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The tile function of :func:`knn_tile_plain`: the plain version
-    for CPU tensors, the CUDA kernel for CUDA tensors."""
+    for CPU tensors, the CUDA kernel for CUDA tensors. In bf16 mode the
+    kernel reads the rows' squared norms from :func:`row_norms_sq`;
+    ``q_sq`` / ``r_sq`` pass ones already computed (f32, one per row)."""
     global KNN_TILE_LAUNCHES
     if q.dim() != 2 or r.dim() != 2 or q.shape[1] != r.shape[1]:
         raise ValueError(f"bad shapes {tuple(q.shape)} / {tuple(r.shape)}")
@@ -178,22 +288,31 @@ def knn_tile(
         raise ValueError("no query rows")
     if _num_col_tiles(n) > 65535 or max(nq, n, row_offset + nq) >= 2**31:
         raise ValueError(f"shape out of the kernel's range: Q={nq}, N={n}")
-    if d % TILE_D:
-        pad = TILE_D - d % TILE_D
-        q = torch.nn.functional.pad(q, (0, pad))
-        r = torch.nn.functional.pad(r, (0, pad))
-    q, r = q.contiguous(), r.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    geo = launch_geometry(nq, n, d, bf16)
+    q, r = _pad_d(q, geo.d_pad), _pad_d(r, geo.d_pad)
     if q.data_ptr() % 16 or r.data_ptr() % 16:
         raise ValueError("q and r must be 16-byte aligned")
     lib = build()
-    d_out = torch.empty((_num_col_tiles(n), nq, tile_k), dtype=torch.float32,
+    if bf16:
+        q_sq = row_norms_sq(q) if q_sq is None else q_sq
+        r_sq = row_norms_sq(r) if r_sq is None else r_sq
+        for name, v, rows in (("q_sq", q_sq, nq), ("r_sq", r_sq, n)):
+            if (v.shape != (rows,) or v.dtype != torch.float32
+                    or v.device != q.device or not v.is_contiguous()):
+                raise ValueError(f"{name} must be ({rows},) contiguous f32 "
+                                 f"on {q.device}")
+        norm_ptrs = (q_sq.data_ptr(), r_sq.data_ptr())
+    else:
+        norm_ptrs = (None, None)
+    d_out = torch.empty((geo.col_tiles, nq, tile_k), dtype=torch.float32,
                         device=q.device)
     i_out = torch.empty_like(d_out, dtype=torch.int32)
     with torch.cuda.device(q.device):
         err = lib.knn_tile_launch(
-            q.data_ptr(), r.data_ptr(), d_out.data_ptr(), i_out.data_ptr(),
-            nq, n, q.shape[1], tile_k, row_offset, int(exclude_self),
-            int(q.dtype == torch.bfloat16),
+            q.data_ptr(), r.data_ptr(), *norm_ptrs, d_out.data_ptr(),
+            i_out.data_ptr(), nq, n, geo.d_pad, tile_k, row_offset,
+            int(exclude_self), int(bf16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -236,13 +355,20 @@ def knn_tiled(
     dtype = torch.bfloat16 if bf16 else torch.float32
     qw = q32.to(dtype).contiguous()
     rw = r32.to(dtype).contiguous()
+    q_sq = r_sq = None
+    if bf16 and qw.is_cuda:  # the norm pre-pass once per call, not per block
+        d_pad = launch_geometry(num_q, num_r, qw.shape[1], True).d_pad
+        qw, rw = _pad_d(qw, d_pad), _pad_d(rw, d_pad)
+        q_sq, r_sq = row_norms_sq(qw), row_norms_sq(rw)
 
     d_parts, i_parts = [], []
     for s in range(0, num_q, row_block):
         e = min(s + row_block, num_q)
         nq = e - s
         d_c, i_c = knn_tile(qw[s:e], rw, tile_k, exclude_self=exclude_self,
-                            row_offset=s)
+                            row_offset=s,
+                            q_sq=None if q_sq is None else q_sq[s:e],
+                            r_sq=r_sq)
         width = d_c.shape[0] * tile_k
         cand_d = d_c.permute(1, 0, 2).reshape(nq, width)
         cand_i = i_c.permute(1, 0, 2).reshape(nq, width)

@@ -10,11 +10,17 @@ cores' f32 accumulation does not round to nearest); ids equal as
 tie-aware sets.
 """
 
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
-from multimodal_umap_tpu_torch.ops import knn_tile as KT
-from multimodal_umap_tpu_torch.ops.knn import knn
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import KERNEL_CASES, case_inputs  # noqa: E402
+
+from multimodal_umap_tpu_torch.ops import knn_tile as KT  # noqa: E402
+from multimodal_umap_tpu_torch.ops.knn import knn  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -40,25 +46,46 @@ def _assert_tie_aware(d_a, i_a, d_b, i_b, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", KERNEL_CASES, ids=str)
 @pytest.mark.parametrize("bf16", [False, True])
-def test_kernel_matches_plain_on_cuda(bf16):
+def test_kernel_matches_plain_on_cuda(bf16, case):
+    """The edge cases of chip_smoke.KERNEL_CASES (ragged Q and N, padded
+    D, tile_k 1 / 32 / TILE_C, self-exclusion at a row offset, exact
+    duplicate rows, an all-+inf tile)."""
     _require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
     dt = torch.bfloat16 if bf16 else torch.float32
     rtol = 1e-4 if bf16 else 1e-5
-    for q_n, n, d, tk, ex in [(40, 40, 24, 5, True), (19, 187, 33, 4, False),
-                              (300, 1000, 96, 32, True), (16, 48, 8, 3, False)]:
-        r = torch.randn(n, d, generator=gen, device="cuda").to(dt)
-        q = r[:q_n] if ex else torch.randn(q_n, d, generator=gen,
-                                           device="cuda").to(dt)
-        before = KT.KNN_TILE_LAUNCHES
-        d_k, i_k = KT.knn_tile(q, r, tk, exclude_self=ex)
-        torch.cuda.synchronize()
-        assert KT.KNN_TILE_LAUNCHES == before + 1
-        d_p, i_p = KT.knn_tile_plain(q, r, tk, exclude_self=ex)
-        scale = float((q.float() ** 2).sum(1).max()
-                      + (r.float() ** 2).sum(1).max())
-        _assert_tie_aware(d_k, i_k, d_p, i_p, rtol * (d_p.abs() + scale))
+    q, r, tk, ex, off = case_inputs(case, gen, "cuda", dt)
+    tk = KT.TILE_C if tk is None else tk
+    before = KT.KNN_TILE_LAUNCHES
+    d_k, i_k = KT.knn_tile(q, r, tk, exclude_self=ex, row_offset=off)
+    torch.cuda.synchronize()
+    assert KT.KNN_TILE_LAUNCHES == before + 1
+    d_p, i_p = KT.knn_tile_plain(q, r, tk, exclude_self=ex, row_offset=off)
+    scale = float((q.float() ** 2).sum(1).max()
+                  + (r.float() ** 2).sum(1).max())
+    _assert_tie_aware(d_k, i_k, d_p, i_p, rtol * (d_p.abs() + scale))
+
+
+@pytest.mark.cuda
+def test_row_norms_and_geometry_on_cuda():
+    """The norm pre-pass against its plain version (another summation
+    order: 1e-5 of the norm), and the shared memory the library asks
+    for against launch_geometry."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = (torch.randn(1000, 200, generator=gen, device="cuda") * 3).bfloat16()
+    before = KT.ROW_NORM_LAUNCHES
+    got = KT.row_norms_sq(x)
+    torch.cuda.synchronize()
+    assert KT.ROW_NORM_LAUNCHES == before + 1
+    want = KT.row_norms_sq_plain(x)
+    assert bool(((got - want).abs() <= 1e-5 * want).all())
+    lib = KT.build()
+    for bf16 in (True, False):
+        geo = KT.launch_geometry(100, 1000, 64, bf16)
+        assert lib.knn_tile_smem_bytes(int(bf16)) == geo.smem_bytes
 
 
 @pytest.mark.cuda

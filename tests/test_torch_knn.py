@@ -77,7 +77,7 @@ def test_bf16_plain_matches_jax_pallas_bf16(scale, q_rows, n, d, k, ex):
     r = (rng.normal(size=(n, d)) * scale).astype(np.float32)
     q = r[:q_rows] if ex else rng.normal(size=(q_rows, d)).astype(np.float32)
     d_j, i_j = knn_pallas(jnp.asarray(q), jnp.asarray(r), k, exclude_self=ex,
-                          tile_r=8, tile_c=128, tile_d=128, interpret=True,
+                          tile_r=8, tile_c=KT.TILE_C, tile_d=128, interpret=True,
                           bf16=True)
     d_p, i_p = PK.knn(t(q), t(r), k, exclude_self=ex, engine="bf16")
     np.testing.assert_array_equal(np.sort(i_p.numpy(), 1),
