@@ -25,28 +25,51 @@ line:
    accumulation), and ids equal as tie-aware sets; the norm pre-pass
    within 1e-5 of the norm;
 4. reference -- the port on the card against the repo's end-to-end
-   golden band (tests/goldens/reference_e2e.json: cosine, trust) and the
-   kernel kNN engine against the exact f32 engine on a small input;
+   golden band (tests/goldens/reference_e2e.json: cosine, trust, and the
+   text->image recon MSE <= 1.1 x the reference's after transform +
+   ``inverse_transform``) and the kernel kNN engine against the exact f32
+   engine on a small input;
 5. main_path -- ``clustered_modalities(31,744 + 1,024, (768, 4096))``,
    ``train`` with ``Config`` defaults (k=15, out_dim=64, 600 epochs),
    ``similarity_test`` and ``knn_test`` (k=5) on 1,024 held-out pairs at
    120 test epochs, ``trustworthiness_sampled`` on both modalities;
    kernel launches counted after fit, transform and knn_test; fails on
    a non-finite metric, cosine < 0.9 or a kernel the path never ran;
-6. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
+6. recon_path -- the rest of the library flow on the fitted model, with
+   the launch counts set to 0 just before it: ``save_state_dict`` ->
+   ``load_state_dict`` into a fresh model (every array bit-equal; archive
+   size and seconds), ``embed_and_recon`` of the 1,024 test texts to
+   images as its two halves ``embed`` then ``recon`` (seconds,
+   ``invert/*`` phases, peak memory, recon MSE against the train-mean
+   predictor, kernel launches inside ``recon``: the invert graph's kNN),
+   and ``crossmodal_recon`` of 16 test pairs (picked as ``main.py``
+   picks them) through the SD-VAE at its published widths with weights
+   drawn from seed 0: decoded (16, 3, 256, 256), finite, 16 PNG pairs
+   written under ``chip_smoke_out/``, and 2 latents decoded by the same
+   module on the CPU in float32 and float64: the card's float32 decode
+   agrees with both (rtol 1e-4, atol 1e-5 per unit of the output's
+   largest magnitude);
+7. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
    (norm pre-pass, tile kernel, candidate permute + merge ``topk``,
-   exact f32 re-score), and the tile kernel's time and bound at the
-   other main-path shapes (D=768; the 1,024-row transform block);
-7. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
-   times of each kernel at the main-path block shape;
-8. last line -- ``{"ok": true, "device": {...}}``.
+   exact f32 re-score), and the tile kernel at the other main-path
+   shapes (D=768; the 1,024-row transform block; the invert block, the
+   1,024 recon-query embeddings against the train embeddings at D=64;
+   the app's 16 of those rows): held against its plain version as in
+   phase 3 (bf16 tolerance), with its time, bound, plain and library
+   times;
+8. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
+   times of each kernel at the main-path block shape, launches on the
+   fit/eval path and the recon path;
+9. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -56,6 +79,8 @@ import torch
 
 N_TRAIN, N_TEST, DIMS, K = 31_744, 1_024, (768, 4096), 15
 BLOCK_ROWS = 8192
+N_APP = 16  # crossmodal_recon samples, as main.py picks them
+OUT_DIR = "chip_smoke_out"  # checkpoint + recon app output (git-ignored)
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM
@@ -209,6 +234,121 @@ def sass_counts(so_path, kernel: str, opcodes) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", body)) for op in opcodes}
 
 
+def recon_path(model, train_np, test_np, cfg, dev, out_dir):
+    """Phase 6 (see the module docstring). Returns (the phase's JSON
+    line, the 1,024 recon-query embeddings the invert graph searched
+    with, the rows of the 16 app samples among them)."""
+    from multimodal_umap_tpu_torch.app.crossmodal import crossmodal_recon
+    from multimodal_umap_tpu_torch.eval.validation import embed, recon
+    from multimodal_umap_tpu_torch.models.mixture import MultimodalUMAP
+    from multimodal_umap_tpu_torch.nn.vae import VAEConfig, random_vae
+    from multimodal_umap_tpu_torch.ops import knn_tile as KT
+
+    os.makedirs(out_dir, exist_ok=True)
+    line = {"phase": "recon_path"}
+    sync = torch.cuda.synchronize
+
+    # save -> load into a fresh model, every array bit-equal
+    path = os.path.join(out_dir, "state.npz")
+    t0 = time.perf_counter()
+    model.save_state_dict(path)
+    line["save_seconds"] = time.perf_counter() - t0
+    line["archive_bytes"] = os.path.getsize(path)
+    t0 = time.perf_counter()
+    loaded = MultimodalUMAP.load_state_dict(path, device=dev)
+    sync()
+    line["load_seconds"] = time.perf_counter() - t0
+    os.remove(path)
+
+    def arrays(m):
+        out = [m.a, m.b, m.k_neighbors, m.out_dim, m.min_dist]
+        for i, enc in enumerate(m.encoders):
+            out += [enc.sigmas, enc.rhos, m.data[i], m.embeds[i],
+                    *(getattr(m.graphs[i], f)
+                      for f in ("rows", "cols", "weights", "valid"))]
+        return out
+
+    line["roundtrip_bit_equal"] = all(
+        torch.equal(x, y) and x.dtype == y.dtype
+        if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(arrays(model), arrays(loaded)))
+    del loaded
+
+    # embed_and_recon of the test texts, run as its two halves (embed,
+    # then recon) so that recon's kernel launches -- the invert graph's
+    # latent-space kNN at D=64 -- are read on their own
+    texts, images = test_np["texts"], test_np["images"]
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    z = embed(model, [texts], [0], cfg)
+    before = KT.KNN_TILE_LAUNCHES
+    recon_out = recon(model, z, [1], cfg)[0]
+    sync()
+    line["embed_and_recon_seconds"] = time.perf_counter() - t0
+    line["invert_tile_launches"] = KT.KNN_TILE_LAUNCHES - before
+    line["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    line["invert_phase_seconds"] = {
+        k: v for k, v in model.timer.report().items()
+        if k.startswith("invert/")}
+    recon_out = recon_out.cpu().numpy()
+    line["recon_shape"] = list(recon_out.shape)
+    line["recon_finite"] = bool(np.isfinite(recon_out).all())
+    line["recon_mse"] = float(np.mean((recon_out - images) ** 2))
+    line["train_mean_mse"] = float(np.mean(
+        (train_np["images"].mean(0) - images) ** 2))
+    line["invert_loss_first_last"] = [
+        float(model.loss_history["invert"][0]),
+        float(model.loss_history["invert"][-1])]
+
+    # the recon app: 16 pairs through the SD-VAE at published widths
+    idx = np.random.default_rng(cfg.seed).permutation(len(texts))[:N_APP]
+    samples = [texts[idx], images[idx]]
+    vae = random_vae(VAEConfig(), seed=0, device=dev)
+    app_dir = os.path.join(out_dir, "crossmodal")
+    shutil.rmtree(app_dir, ignore_errors=True)
+    before = KT.KNN_TILE_LAUNCHES
+    t0 = time.perf_counter()
+    app_recon = crossmodal_recon(samples, cfg, model, out_dir=app_dir,
+                                 vae=vae)[0]
+    sync()
+    line["crossmodal_recon_seconds"] = time.perf_counter() - t0
+    line["app_tile_launches"] = KT.KNN_TILE_LAUNCHES - before
+    latents = app_recon.reshape(-1, 4, 32, 32)
+    vae.decode(latents)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    imgs = vae.decode(latents)
+    sync()
+    line["vae_decode_seconds"] = time.perf_counter() - t0
+    line["decoded_shape"] = list(imgs.shape)
+    line["decoded_finite"] = bool(torch.isfinite(imgs).all())
+    # 2 latents on the CPU, in float32 and in float64, by the same module.
+    # The float32 decodes are held to rtol 1e-4 and an atol of 1e-5 per
+    # unit of the output's largest magnitude: float32 rounding through the
+    # decoder's ~30 chained convolutions grows with the values it carries.
+    cpu_vae = copy.deepcopy(vae.module).cpu()
+    z2 = torch.from_numpy(latents[:2]).float()
+    with torch.inference_mode():
+        on_cpu = cpu_vae.decode(z2)
+        exact = cpu_vae.double().decode(z2.double())
+    card = imgs[:2].cpu()
+    out_max = float(exact.abs().max())
+    atol = 1e-5 * max(1.0, out_max)
+    line["vae_vs_float64"] = {
+        "output_max_abs": out_max, "rtol": 1e-4, "atol": atol,
+        "card_max_abs_err": float((card.double() - exact).abs().max()),
+        "cpu_max_abs_err": float((on_cpu.double() - exact).abs().max()),
+        "card_vs_cpu_max_abs_err": float((card - on_cpu).abs().max())}
+    line["cpu_vs_card_ok"] = bool(
+        torch.allclose(card, on_cpu, rtol=1e-4, atol=atol)
+        and torch.allclose(card.double(), exact, rtol=1e-4, atol=atol))
+    pngs = sorted(f for f in os.listdir(app_dir) if f.endswith(".png"))
+    line["png_files"] = len(pngs)
+    line["png_images"] = 2 * len(pngs)  # each file: original over recon
+    return line, z[0], idx
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False -- needs a "
@@ -327,6 +467,14 @@ def main() -> None:
                             quiet=True)
     s_trust = [trustworthiness(s_train[k], s_model.embeds[i], k=10)
                for i, k in enumerate(s_train)]
+    # recon as tests/test_reference_parity_e2e.py runs it
+    s_z = s_model.transform([s_test["texts"]], epochs=gc["test_epochs"],
+                            data_indices=[0], num_rep=4, lr=0.05,
+                            batch_size=64)
+    s_recon = s_model.inverse_transform(
+        s_z, epochs=gc["test_epochs"], data_indices=[1], num_rep=4, lr=0.05,
+        batch_size=64)[0].cpu().numpy()
+    s_mse = float(np.mean((s_recon - s_test["images"]) ** 2))
     x = torch.from_numpy(s_train["images"]).to(dev)
     d_k, i_k = knn(x, x, gc["k"], exclude_self=True, engine="bf16")
     d_x, i_x = knn(x, x, gc["k"], exclude_self=True, engine="xla")
@@ -336,12 +484,14 @@ def main() -> None:
     emit({"phase": "reference", "cosine": s_cos,
           "cosine_band": ref["cosine"] - 0.03, "trust": s_trust,
           "trust_band": [t - 0.02 for t in ref["trustworthiness"]],
+          "recon_mse": s_mse, "recon_mse_band": 1.1 * ref["recon_mse"],
           "knn_bf16_vs_xla": knn_cmp})
     check(s_cos >= ref["cosine"] - 0.03, "small-input cosine below band")
     check(all(t >= r - 0.02 for t, r in zip(s_trust, ref["trustworthiness"])),
           "small-input trustworthiness below band")
     check(knn_cmp["values_ok"] and knn_cmp["ids_ok"],
           "bf16 kernel engine disagrees with the exact engine")
+    check(s_mse <= 1.1 * ref["recon_mse"], "small-input recon MSE above band")
 
     # 5. main path at full width
     cfg = Config()
@@ -396,8 +546,37 @@ def main() -> None:
           "knn_test launched no kNN kernel")
     check(norm_launches > 0, "the main path launched no norm pre-pass")
 
-    # 6. knn_tiled's stages at the main-path block (rows [0, 8192) of the
-    # D=4096 fit graph, bf16), and the tile kernel at the other shapes
+    # 6. the recon path (save/load, embed_and_recon, crossmodal_recon)
+    torch.cuda.synchronize()
+    KT.KNN_TILE_LAUNCHES = 0
+    KT.ROW_NORM_LAUNCHES = 0
+    rline, invert_q, app_rows = recon_path(model, train_np, test_np, cfg,
+                                           dev, OUT_DIR)
+    recon_launches = KT.KNN_TILE_LAUNCHES
+    recon_norm_launches = KT.ROW_NORM_LAUNCHES
+    rline.update(knn_tile_launches=recon_launches,
+                 row_norm_launches=recon_norm_launches)
+    emit(rline)
+    check(rline["roundtrip_bit_equal"], "save/load round trip not bit-equal")
+    check(rline["recon_finite"] and rline["recon_shape"] == [N_TEST, DIMS[1]],
+          "recon not finite or of the wrong shape")
+    check(rline["recon_mse"] < rline["train_mean_mse"],
+          "recon MSE not below the train-mean predictor")
+    check(rline["invert_tile_launches"] > 0,
+          "recon's invert graph launched no kNN kernel")
+    check(rline["app_tile_launches"] >= 2,
+          "the recon app's transform + invert launched < 2 kNN kernels")
+    check(rline["decoded_shape"] == [N_APP, 3, 256, 256]
+          and rline["decoded_finite"], "VAE decode wrong shape or not finite")
+    check(rline["cpu_vs_card_ok"],
+          "VAE decode on the card differs from the CPU / float64 decode")
+    check(rline["png_files"] == N_APP, "recon app wrote the wrong PNG count")
+    check(recon_launches > 0 and recon_norm_launches > 0,
+          "the recon path launched no kernel")
+
+    # 7. knn_tiled's stages at the main-path block (rows [0, 8192) of the
+    # D=4096 fit graph, bf16), and the tile kernel at the other shapes,
+    # each also held against its plain version there
     from multimodal_umap_tpu_torch.ops.knn import _exact_rescore_sq
 
     tk = KT.bf16_tile_k(K, N_TRAIN - 1)
@@ -446,21 +625,37 @@ def main() -> None:
     test_images = torch.from_numpy(test_np["images"]).to(dev)
     for name, qo, ro, ex in (
             ("fit block, D=768", texts[:BLOCK_ROWS], texts, True),
-            ("transform block, D=4096", test_images, images, False)):
+            ("transform block, D=4096", test_images, images, False),
+            ("invert block, D=64", invert_q, model.embeds[1], False),
+            ("app invert query, D=64", invert_q[torch.as_tensor(app_rows, device=dev)],
+             model.embeds[1], False)):
         qo, ro = qo.to(torch.bfloat16), ro.to(torch.bfloat16)
         qs, rs = KT.row_norms_sq(qo), KT.row_norms_sq(ro)
+        got = KT.knn_tile(qo, ro, tk, exclude_self=ex, q_sq=qs, r_sq=rs)
+        torch.cuda.synchronize()
+        want = KT.knn_tile_plain(qo, ro, tk, exclude_self=ex)
+        cmp = tie_aware_match(*got, *want, sq_scale(qo, ro), RTOL[True])
+        del got, want
         b_ms, b_by = bound_ms(qo.shape[0], ro.shape[0], ro.shape[1], tk)
         other.append({
             "shape": name, "Q": qo.shape[0], "N": ro.shape[0],
             "D": ro.shape[1], "tile_k": tk, "bound_ms": b_ms, "bound_by": b_by,
             "ms": cuda_ms(lambda: KT.knn_tile(qo, ro, tk, exclude_self=ex,
-                                              q_sq=qs, r_sq=rs), 10)})
+                                              q_sq=qs, r_sq=rs), 10),
+            "plain_ms": cuda_ms(lambda: KT.knn_tile_plain(
+                qo, ro, tk, exclude_self=ex), 3),
+            "library_ms": cuda_ms(lambda: library_tile_topk(
+                qo, ro, tk, KT.TILE_C, exclude_self=ex), 10),
+            "vs_plain": cmp})
     emit({"phase": "knn_stages", "shape": {"Q": BLOCK_ROWS, "N": N_TRAIN,
                                            "D": DIMS[1], "tile_k": tk,
                                            "cand": cand, "k": K},
           **stages, "tile_kernel_other_shapes": other})
+    check(all(o["vs_plain"]["values_ok"] and o["vs_plain"]["ids_ok"]
+              for o in other),
+          "tile kernel disagrees with plain at a main-path shape")
 
-    # 7. kernels line: the fit graph's main-path block at D=4096, bf16
+    # 8. kernels line: the fit graph's main-path block at D=4096, bf16
     ms = stages["tile_kernel_ms"]
     plain_ms = cuda_ms(lambda: KT.knn_tile_plain(qb, rb, tk, exclude_self=True), 3)
     library_ms = cuda_ms(lambda: library_tile_topk(
@@ -476,7 +671,9 @@ def main() -> None:
         "route": "cuda",
         "source": "multimodal_umap_tpu_torch/csrc/knn_tile.cu",
         "replaces": "multimodal_umap_tpu/ops/knn_pallas.py:48",
-        "launches": main_launches,
+        "launches": main_launches + recon_launches,
+        "launches_by_path": {"fit_eval": main_launches,
+                             "recon": recon_launches},
         "max_abs_err": main_block_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -490,7 +687,9 @@ def main() -> None:
         "route": "cuda",
         "source": "multimodal_umap_tpu_torch/csrc/knn_tile.cu",
         "replaces": "multimodal_umap_tpu/ops/knn_pallas.py:74",
-        "launches": norm_launches,
+        "launches": norm_launches + recon_norm_launches,
+        "launches_by_path": {"fit_eval": norm_launches,
+                             "recon": recon_norm_launches},
         "max_abs_err": norm_err,
         "ms": stages["norm_prepass_ms"],
         "plain_ms": cuda_ms(lambda: (KT.row_norms_sq_plain(qb),

@@ -25,7 +25,7 @@ class Config:
         batch_size: row-window size for the per-window loss averaging
             (the optimizer takes one full-batch step per epoch).
         test_epochs: epochs for ``transform``.
-        log_dir: per-epoch loss log directory (not used by this port yet).
+        log_dir: per-epoch loss log directory (``utils/logging.py``).
         seed: base seed for all stochastic stages.
         spectral_method: "auto", "dense" or "chebyshev" (ops/spectral.py).
         knn_engine: kNN engine (ops/knn.py) -- None = device default
@@ -33,8 +33,9 @@ class Config:
             panels on the CPU); or "bf16" / "xla" / "pallas" / "stream".
         feature_dtype: storage dtype of the training feature tables
             (only "float32" in this port so far).
-        progress_path, resume, graph_cache_path: snapshot options of the
-            JAX package, not ported yet.
+        progress_path: optimizer-state snapshot file of ``train``'s fit.
+        resume: continue that fit from its snapshot.
+        graph_cache_path: fit graph-stage cache file.
     """
 
     k_neighbors: int = 15

@@ -1,4 +1,5 @@
-"""Evaluation metrics: cross-modal cosine similarity and kNN retrieval.
+"""Training, embedding and reconstruction wrappers, and the evaluation
+metrics: cross-modal cosine similarity and kNN retrieval.
 
 Counterpart of ``multimodal_umap_tpu/eval/validation.py``. As in the
 reference, both metrics *re-embed* their inputs with a full transform
@@ -18,7 +19,9 @@ from ..ops.knn import knn
 
 def train(data: dict, cfg: Config, device: torch.device | str | None = None,
           verbose: bool = False) -> MultimodalUMAP:
-    """Trains a multimodal UMAP model on a data dict."""
+    """Trains a multimodal UMAP model on a data dict, with the snapshot
+    options of ``cfg`` (``progress_path``, ``resume``,
+    ``graph_cache_path``)."""
     tensors = [data[key] for key in data]
     model = MultimodalUMAP(
         k_neighbors=cfg.k_neighbors, out_dim=cfg.out_dim,
@@ -28,7 +31,8 @@ def train(data: dict, cfg: Config, device: torch.device | str | None = None,
     )
     model.fit(tensors, epochs=cfg.train_epochs, num_rep=cfg.num_rep,
               lr=cfg.lr, alpha=cfg.alpha, batch_size=cfg.batch_size,
-              verbose=verbose)
+              progress_path=cfg.progress_path, resume=cfg.resume,
+              verbose=verbose, graph_cache_path=cfg.graph_cache_path)
     return model
 
 
@@ -38,6 +42,25 @@ def embed(model: MultimodalUMAP, data: list, src: list[int], cfg: Config,
     return model.transform(data, epochs=cfg.test_epochs, data_indices=src,
                            num_rep=cfg.num_rep, lr=cfg.lr, alpha=cfg.alpha,
                            batch_size=cfg.batch_size, verbose=verbose)
+
+
+def recon(model: MultimodalUMAP, embeds: list, dst: list[int], cfg: Config,
+          verbose: bool = False) -> list[torch.Tensor]:
+    """Reconstruction wrapper: latent embeddings back to the features of
+    modalities ``dst``."""
+    return model.inverse_transform(
+        embeds, epochs=cfg.test_epochs, data_indices=dst,
+        num_rep=cfg.num_rep, lr=cfg.lr, alpha=cfg.alpha,
+        batch_size=cfg.batch_size, verbose=verbose)
+
+
+def embed_and_recon(model: MultimodalUMAP, data: list, src: list[int],
+                    dst: list[int], cfg: Config, verbose: bool = False
+                    ) -> list[torch.Tensor]:
+    """Cross-modal translation: embed ``data`` of modalities ``src``,
+    then reconstruct it as modalities ``dst``."""
+    return recon(model, embed(model, data, src, cfg, verbose), dst, cfg,
+                 verbose)
 
 
 def _mean_pairwise_cosine(normed: list[torch.Tensor]) -> torch.Tensor:

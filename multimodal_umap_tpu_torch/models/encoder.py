@@ -7,7 +7,10 @@ device):
     the fuzzy-union t-conorm, spectral initialization;
   * ``transform_graph`` -- query-vs-train graph in feature space, fuzzy
     weights with fresh per-query sigma/rho, initialized by the
-    affinity-weighted average of the stored train embeddings.
+    affinity-weighted average of the stored train embeddings;
+  * ``invert_graph`` -- query-vs-train graph in latent space with
+    output-curve weights, initialized by the affinity-weighted average of
+    the training data rows (the JAX package's fixed invert semantics).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from ..ops.graph import (
     DenseSymGraph,
     EdgeGraph,
+    curve_weights,
     embed_query,
     fuzzy_weights,
     symmetrize,
@@ -75,3 +79,14 @@ class ModalityEncoder:
                           engine=engine)
         weights, _, _ = fuzzy_weights(dists)
         return nbrs, weights, embed_query(nbrs, weights, train_embeds)
+
+    def invert_graph(self, query_embeds: torch.Tensor,
+                     train_embeds: torch.Tensor, train_data: torch.Tensor,
+                     a: float, b: float
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Latent-space (nbrs, weights) + data-space initialization."""
+        engine = resolve_engine(self.knn_engine, query_embeds.device)
+        dists, nbrs = knn(query_embeds, train_embeds, self.k_neighbors,
+                          engine=engine)
+        weights = curve_weights(dists, a, b)
+        return nbrs, weights, embed_query(nbrs, weights, train_data)

@@ -20,7 +20,9 @@ forward slots of (c_fwd + c_bwd) * f(x_i, x_j) and the neighbor gather
 is the only gradient aggregation (an ``index_add_`` in the backward).
 Fit repulsion negatives are rolls of ONE randomly permuted copy of the
 table (round r's negative for row i is permuted[(i + off_r) % n]);
-transform keeps iid uniform negatives.
+transform and invert keep iid uniform negatives. Invert mode runs the
+inverse attract/repel losses against the frozen training data with the
+fit-time bandwidths (sigmas, rhos) of the reference rows.
 
 Randomness is explicit: every loss takes its draws as tensors
 (:class:`FitDraws`, :class:`QueryDraws`, ``losses.InfoNCEDraws``), and
@@ -33,6 +35,7 @@ replaces Bernoulli keeps with their expectation.
 from __future__ import annotations
 
 import dataclasses
+import os
 import typing
 
 import torch
@@ -46,14 +49,17 @@ class LayoutTask(typing.NamedTuple):
     """Per-modality state for the layout optimizer.
 
     Fit: ``nbrs/weights/bwd_valid`` of the :class:`DenseSymGraph`,
-    ``ref`` None. Transform: (Q, k) query graph and the frozen reference
-    table ``ref``.
+    ``ref`` None. Transform/invert: (Q, k) query graph and the frozen
+    reference table ``ref`` (embeddings / training data);
+    ``sigmas``/``rhos`` are the fit-time bandwidths (invert only).
     """
 
     nbrs: torch.Tensor  # (Q, k) int64
     weights: torch.Tensor  # (Q, k) f32
     bwd_valid: torch.Tensor | None  # (N, k) bool, fit only
     ref: torch.Tensor | None
+    sigmas: torch.Tensor | None = None
+    rhos: torch.Tensor | None = None
 
 
 class TaskStatic(typing.NamedTuple):
@@ -74,11 +80,13 @@ def fit_task(dense: DenseSymGraph, batch_size: int
 
 
 def query_task(nbrs: torch.Tensor, weights: torch.Tensor, batch_size: int,
-               ref: torch.Tensor) -> tuple[LayoutTask, TaskStatic]:
+               ref: torch.Tensor, sigmas: torch.Tensor | None = None,
+               rhos: torch.Tensor | None = None
+               ) -> tuple[LayoutTask, TaskStatic]:
     q = nbrs.shape[0]
     return (
         LayoutTask(nbrs=nbrs.long(), weights=weights.float(),
-                   bwd_valid=None, ref=ref),
+                   bwd_valid=None, ref=ref, sigmas=sigmas, rhos=rhos),
         TaskStatic(num_rows=q, num_windows=max(1, -(-q // batch_size)),
                    rep_count=int(ref.shape[0])),
     )
@@ -100,8 +108,8 @@ class FitDraws:
 
 @dataclasses.dataclass
 class QueryDraws:
-    """One modality's transform-epoch draws: (Q, k) keep uniforms and
-    (num_rep, Q, k) iid negative ids."""
+    """One modality's transform- or invert-epoch draws: (Q, k) keep
+    uniforms and (num_rep, Q, k) iid negative ids."""
 
     keep_u: torch.Tensor
     neg_idx: torch.Tensor
@@ -256,18 +264,30 @@ def _fit_repulsion(embed, static, draws: FitDraws, rowcnt, inv_row, *,
 
 def _query_modality_loss(embed, task: LayoutTask, static: TaskStatic,
                          draws: QueryDraws, *, a, b, num_rep: int,
-                         batch_size: int, deterministic: bool
-                         ) -> torch.Tensor:
-    """Transform: queries attract to frozen reference rows and repel
-    from iid-uniform reference rows; nothing reaches ``ref``."""
+                         batch_size: int, deterministic: bool,
+                         mode: str = "transform") -> torch.Tensor:
+    """Transform/invert: queries attract to frozen reference rows and
+    repel from iid-uniform reference rows; nothing reaches ``ref``.
+    Invert uses the inverse losses with the reference rows' fit-time
+    sigma (attraction) and sigma/rho (repulsion)."""
     keep = (task.weights if deterministic
             else (draws.keep_u < task.weights).float())
     x = embed[:, None, :]
-    attr = L.umap_attr(x, task.ref[task.nbrs], a, b)
+    if mode == "invert":
+        attr = L.inv_attr(x, task.ref[task.nbrs], a, b,
+                          task.sigmas[task.nbrs])
+    else:
+        attr = L.umap_attr(x, task.ref[task.nbrs], a, b)
     if num_rep > 0:
         rep_sum = torch.zeros_like(attr)
         for r in range(num_rep):
-            rep_sum = rep_sum + L.umap_rep(x, task.ref[draws.neg_idx[r]], a, b)
+            neg = draws.neg_idx[r]
+            if mode == "invert":
+                rep = L.inv_rep(x, task.ref[neg], task.sigmas[neg],
+                                task.rhos[neg])
+            else:
+                rep = L.umap_rep(x, task.ref[neg], a, b)
+            rep_sum = rep_sum + rep
         per_slot = keep * (attr + rep_sum / num_rep)
     else:
         per_slot = keep * attr
@@ -276,23 +296,60 @@ def _query_modality_loss(embed, task: LayoutTask, static: TaskStatic,
     return win_mean.mean()
 
 
+_MODES = ("fit", "transform", "invert")
+
+
+@dataclasses.dataclass
+class AdamState:
+    """``torch.optim.Adam``'s state of the layout parameters in optax's
+    leaf order: the step count, then the first moment (mu) and the second
+    moment (nu) of each modality."""
+
+    count: int
+    mu: list[torch.Tensor]
+    nu: list[torch.Tensor]
+
+
+def adam_state(optimizer: torch.optim.Adam, params) -> AdamState:
+    """The optimizer's state for ``params`` (all initialized)."""
+    states = [optimizer.state[p] for p in params]
+    return AdamState(count=int(states[0]["step"]),
+                     mu=[s["exp_avg"] for s in states],
+                     nu=[s["exp_avg_sq"] for s in states])
+
+
+def _set_adam_state(optimizer: torch.optim.Adam, params,
+                    state: AdamState) -> None:
+    for p, mu, nu in zip(params, state.mu, state.nu):
+        optimizer.state[p] = {
+            "step": torch.tensor(float(state.count), dtype=torch.float32),
+            "exp_avg": mu.detach().to(p.device, torch.float32).clone(),
+            "exp_avg_sq": nu.detach().to(p.device, torch.float32).clone(),
+        }
+
+
 def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
                  num_rep: int, alpha: float, batch_size: int,
                  n_neg_infonce: int = 8, infonce_temperature: float = 0.5,
                  deterministic: bool = False):
     """The total loss of one epoch:
     ``loss(params, tasks, a, b, draws: EpochDraws) -> scalar``."""
-    if mode not in ("fit", "transform"):
+    if mode not in _MODES:
         raise ValueError(f"invalid mode: {mode}")
 
     def loss_fn(params, tasks, a, b, draws: EpochDraws):
         total = params[0].new_zeros(())
         for i, static in enumerate(statics):
-            fn = _fit_modality_loss if mode == "fit" else _query_modality_loss
-            total = total + fn(
-                params[i], tasks[i], static, draws.modality[i], a=a, b=b,
-                num_rep=num_rep, batch_size=batch_size,
-                deterministic=deterministic)
+            kw = dict(a=a, b=b, num_rep=num_rep, batch_size=batch_size,
+                      deterministic=deterministic)
+            if mode == "fit":
+                loss = _fit_modality_loss(params[i], tasks[i], static,
+                                          draws.modality[i], **kw)
+            else:
+                loss = _query_modality_loss(params[i], tasks[i], static,
+                                            draws.modality[i], mode=mode,
+                                            **kw)
+            total = total + loss
         if mode == "fit" and len(statics) > 1 and alpha != 0.0:
             # Symmetric InfoNCE added to both modality buckets => 2*alpha
             # effective weight.
@@ -327,29 +384,39 @@ def train_layout(
     b: float,
     seed: int = 0,
     draws=None,
-    epoch_chunk: int = 100,
+    epoch_chunk: int | None = None,
     chunk_callback=None,
     start_epoch: int = 0,
+    init_opt_state: AdamState | None = None,
 ) -> tuple[list[torch.Tensor], torch.Tensor]:
     """Full-batch Adam layout optimization, one step per epoch.
 
     ``draws(epoch) -> EpochDraws`` supplies each epoch's randomness;
     None draws from generators seeded by (``seed``, epoch). Every
-    ``epoch_chunk`` epochs ``chunk_callback(done, params, optimizer,
-    losses)`` fires; the loss history stays on the device until then
-    (no host sync inside the epoch loop).
+    ``epoch_chunk`` epochs (default ``MMUMAP_EPOCH_CHUNK``, else 100)
+    ``chunk_callback(done, params, optimizer, losses)`` fires; the loss
+    history stays on the device until then (no host sync inside the
+    epoch loop).
+
+    ``start_epoch``/``init_opt_state`` resume a run: the draws of epoch
+    e depend on (seed, e) only, so a resumed run replays exactly the
+    epochs the original would have run.
 
     Returns (final embeddings per modality, (epochs - start_epoch,) f32
     loss history on the CPU).
     """
-    if mode not in ("fit", "transform"):
+    if mode not in _MODES:
         raise ValueError(f"invalid mode: {mode}")
+    if epoch_chunk is None:
+        epoch_chunk = max(1, int(os.environ.get("MMUMAP_EPOCH_CHUNK", 100)))
     device = init_embeds[0].device
     params = [e.detach().float().clone().requires_grad_(True)
               for e in init_embeds]
     # torch.optim.Adam's defaults (betas 0.9/0.999, eps 1e-8) are
     # optax.adam's: the same bias-corrected update.
     optimizer = torch.optim.Adam(params, lr=lr)
+    if init_opt_state is not None:
+        _set_adam_state(optimizer, params, init_opt_state)
     loss_fn = make_loss_fn(statics, mode=mode, num_rep=num_rep, alpha=alpha,
                            batch_size=batch_size)
     tasks = tuple(tasks)
@@ -373,6 +440,8 @@ def train_layout(
         history.append(hist)
         if chunk_callback is not None:
             chunk_callback(done, params, optimizer, hist)
-    full = (torch.cat(history) if history
-            else torch.zeros(0, dtype=torch.float32, device=device))
-    return [p.detach() for p in params], full.cpu()
+    if not history:
+        # start_epoch >= epochs: a snapshot already recorded the final
+        # epoch; the loaded params come back untouched.
+        return [p.detach() for p in params], torch.zeros(0)
+    return [p.detach() for p in params], torch.cat(history).cpu()

@@ -1,12 +1,14 @@
 """Multimodal UMAP mixture model: the public model API.
 
-Counterpart of ``multimodal_umap_tpu/models/mixture.py`` with the same
-lifecycle surface so far: ``fit`` / ``fit_transform`` / ``transform`` /
-``get_ab_coeffs``, plus :meth:`MultimodalUMAP.from_numpy_state`, which
-builds a fitted model from numpy arrays named as the JAX package's
-checkpoint names them. Method defaults mirror the reference's
-signatures (lr=0.2, alpha=0.5, batch_size=512); the experiment values
-come from ``Config``.
+Counterpart of ``multimodal_umap_tpu/models/mixture.py`` with its
+lifecycle surface: ``fit`` / ``fit_transform`` / ``transform`` /
+``inverse_transform`` / ``save_state_dict`` / ``load_state_dict`` /
+``get_ab_coeffs``, the progress snapshots and resume of fit, transform
+and invert, and fit's graph cache; plus
+:meth:`MultimodalUMAP.from_numpy_state`, which builds a fitted model from
+numpy arrays named as the checkpoint names them. Method defaults mirror
+the reference's signatures (lr=0.2, alpha=0.5, batch_size=512); the
+experiment values come from ``Config``.
 
 Every tensor lives on ``device`` (default CUDA; without a GPU that
 raises unless the caller passes ``device="cpu"``).
@@ -14,17 +16,89 @@ raises unless the caller passes ``device="cpu"``).
 
 from __future__ import annotations
 
-import json
+import os
+import time
 
 import numpy as np
 import torch
 
 from ..ops.graph import EdgeGraph
+from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.prof import PhaseTimer
 from .curve import get_ab_coeffs as _get_ab_coeffs
 from .encoder import ModalityEncoder
-from .layout import fit_task, query_task, train_layout
+from .layout import AdamState, adam_state, fit_task, query_task, train_layout
+
+
+def _npz_path(path: str | None) -> str | None:
+    """``np.savez`` appends '.npz' to a path without it; normalizing once
+    keeps the resume existence check and the save on one path."""
+    if path is None or path.endswith(".npz"):
+        return path
+    return path + ".npz"
+
+
+def _progress_callback(label: str, epochs: int, progress_path: str | None,
+                       verbose: bool):
+    """Chunk-boundary callback: loss readout and a snapshot of the
+    optimizer state (parameters, Adam moments, epoch), so a preempted
+    run loses at most one snapshot interval. Shared by fit, transform
+    and inverse_transform.
+
+    Snapshots are throttled to one per ``MMUMAP_SNAPSHOT_INTERVAL_S``
+    (default 120 s); the final chunk always saves. Each snapshot is
+    written synchronously and moved into place atomically, so the final
+    one is durable before the call returns. Keys are the JAX package's:
+    ``epoch``, ``embeds_{m}`` and ``opt_{i}`` in optax's leaf order
+    (count, then mu and nu per modality).
+    """
+    if progress_path is None and not verbose:
+        return None
+    interval = float(os.environ.get("MMUMAP_SNAPSHOT_INTERVAL_S", 120.0))
+    last_save = [float("-inf")]
+
+    def callback(done, params, optimizer, hist):
+        if verbose:
+            print(f"{label} {done}/{epochs}  loss {float(hist[-1]):.4f}",
+                  flush=True)
+        if progress_path is None:
+            return
+        now = time.monotonic()
+        if done < epochs and now - last_save[0] < interval:
+            return
+        last_save[0] = now
+        state = adam_state(optimizer, params)
+        leaves = [np.int32(state.count), *state.mu, *state.nu]
+        arrays = {"epoch": np.int64(done)}
+        arrays.update({f"embeds_{m}": p for m, p in enumerate(params)})
+        arrays.update({f"opt_{i}": v for i, v in enumerate(leaves)})
+        ckpt.write_npz(progress_path, arrays)
+
+    return callback
+
+
+def _load_progress(progress_path: str | None, resume: bool, num_modes: int,
+                   device: torch.device):
+    """Restores a :func:`_progress_callback` snapshot: ``(start_epoch,
+    params or None, AdamState or None)``. No snapshot: a fresh start."""
+    if not resume:
+        return 0, None, None
+    if progress_path is None:
+        raise ValueError("resume=True requires progress_path")
+    if not os.path.exists(progress_path):
+        return 0, None, None
+    with np.load(progress_path, allow_pickle=False) as snap:
+        def t(key):
+            return torch.as_tensor(snap[key], dtype=torch.float32,
+                                   device=device)
+
+        inits = [t(f"embeds_{m}") for m in range(num_modes)]
+        state = AdamState(
+            count=int(snap["opt_0"]),
+            mu=[t(f"opt_{1 + m}") for m in range(num_modes)],
+            nu=[t(f"opt_{1 + num_modes + m}") for m in range(num_modes)])
+        return int(snap["epoch"]), inits, state
 
 
 class MultimodalUMAP:
@@ -34,7 +108,8 @@ class MultimodalUMAP:
         k_neighbors, out_dim, min_dist, num_encoders: hyperparameters.
         a, b: fitted UMAP curve coefficients.
         encoders: per-modality :class:`ModalityEncoder` graph state.
-        data: training features per modality (transform needs them).
+        data: training features per modality (transform and invert
+            query them, so checkpoints store them).
         graphs: symmetric fuzzy EdgeGraphs per modality.
         embeds: trained latent embeddings per modality.
     """
@@ -81,31 +156,71 @@ class MultimodalUMAP:
 
     def fit(self, inputs, epochs: int, num_rep: int = 8, lr: float = 0.2,
             alpha: float = 0.5, batch_size: int = 512,
-            verbose: bool = False) -> None:
+            progress_path: str | None = None, resume: bool = False,
+            verbose: bool = False,
+            graph_cache_path: str | None = None) -> None:
         """Fits the shared latent space to per-modality (N_i, D_i)
         training features: graph + spectral init per modality, then
-        ``epochs`` full-batch Adam steps (InfoNCE weight 2*alpha)."""
+        ``epochs`` full-batch Adam steps (InfoNCE weight 2*alpha).
+
+        ``progress_path`` snapshots the optimizer state at chunk
+        boundaries; ``resume`` continues from that snapshot with the
+        draws the uninterrupted run would have used (``loss_history``
+        then covers the resumed epochs only). ``graph_cache_path`` saves
+        the graph stage's outputs there, and a rerun on the same features
+        (fingerprint), k, out_dim and spectral method loads them instead
+        of rebuilding.
+        """
         data = [self._as_f32(x) for x in inputs]
         if len(data) != self.num_encoders:
             raise ValueError(
                 f"expected {self.num_encoders} modalities, got {len(data)}")
         self.data = data
-        graphs, denses, inits = [], [], []
-        for i, (enc, feats) in enumerate(zip(self.encoders, data)):
-            with self.timer.phase(f"fit/graph_{i}"):
-                graph, dense, init = enc.fit_graph(feats)
-            graphs.append(graph)
-            denses.append(dense)
-            inits.append(init)
+        progress_path = _npz_path(progress_path)
+        cached = None
+        if graph_cache_path is not None:
+            fingerprints = [ckpt.feature_fingerprint(x) for x in data]
+            cached = ckpt.load_graph_cache(
+                graph_cache_path, k_neighbors=self.k_neighbors,
+                out_dim=self.out_dim, spectral_method=self.spectral_method,
+                fingerprints=fingerprints, device=self.device)
+        if cached is not None:
+            graphs, denses, inits = (cached["graphs"], cached["denses"],
+                                     cached["inits"])
+            for enc, sig, rho in zip(self.encoders, cached["sigmas"],
+                                     cached["rhos"]):
+                enc.sigmas, enc.rhos = sig, rho
+        else:
+            graphs, denses, inits = [], [], []
+            for i, (enc, feats) in enumerate(zip(self.encoders, data)):
+                with self.timer.phase(f"fit/graph_{i}"):
+                    graph, dense, init = enc.fit_graph(feats)
+                graphs.append(graph)
+                denses.append(dense)
+                inits.append(init)
+            if graph_cache_path is not None:
+                with self.timer.phase("fit/graph_cache_save"):
+                    ckpt.save_graph_cache(
+                        graph_cache_path, k_neighbors=self.k_neighbors,
+                        out_dim=self.out_dim,
+                        spectral_method=self.spectral_method, graphs=graphs,
+                        denses=denses, inits=inits,
+                        sigmas=[e.sigmas for e in self.encoders],
+                        rhos=[e.rhos for e in self.encoders],
+                        fingerprints=fingerprints)
         self.graphs = graphs
         tasks, statics = zip(*(fit_task(d, batch_size) for d in denses))
+        start_epoch, snap_inits, opt_state = _load_progress(
+            progress_path, resume, self.num_encoders, self.device)
 
         with self.timer.phase("fit/layout"):
             embeds, hist = train_layout(
-                inits, tasks, statics, mode="fit", epochs=epochs,
-                num_rep=num_rep, lr=lr, alpha=alpha, batch_size=batch_size,
-                a=self.a, b=self.b, seed=self.seed,
-                chunk_callback=_verbose_callback("epoch", epochs, verbose),
+                snap_inits or inits, tasks, statics, mode="fit",
+                epochs=epochs, num_rep=num_rep, lr=lr, alpha=alpha,
+                batch_size=batch_size, a=self.a, b=self.b, seed=self.seed,
+                chunk_callback=_progress_callback("epoch", epochs,
+                                                  progress_path, verbose),
+                start_epoch=start_epoch, init_opt_state=opt_state,
             )
         self.embeds = embeds
         self.loss_history["fit"] = hist.numpy()
@@ -120,18 +235,14 @@ class MultimodalUMAP:
     def transform(self, inputs, epochs: int,
                   data_indices: list[int] | None = None, num_rep: int = 8,
                   lr: float = 0.2, alpha: float = 0.5, batch_size: int = 512,
+                  progress_path: str | None = None, resume: bool = False,
                   verbose: bool = False) -> list[torch.Tensor]:
         """Embeds new data into the learned latent space: query graphs
         in feature space against the stored training features, queries
         initialized as affinity-weighted averages of train embeddings
-        and optimized with the references frozen."""
-        self._require_fitted()
-        indices = (list(data_indices) if data_indices is not None
-                   else list(range(self.num_encoders)))
-        queries = [self._as_f32(x) for x in inputs]
-        queries = [q[None, :] if q.dim() == 1 else q for q in queries]
-        if len(queries) != len(indices):
-            raise ValueError("inputs and data_indices length mismatch")
+        and optimized with the references frozen. ``progress_path`` /
+        ``resume`` as in :meth:`fit`."""
+        queries, indices = self._queries(inputs, data_indices)
         tasks, statics, inits = [], [], []
         with self.timer.phase("transform/graph"):
             for q, idx in zip(queries, indices):
@@ -142,15 +253,74 @@ class MultimodalUMAP:
                 tasks.append(task)
                 statics.append(static)
                 inits.append(init)
-        with self.timer.phase("transform/layout"):
+        return self._query_layout(
+            "transform", tasks, statics, inits, epochs=epochs,
+            num_rep=num_rep, lr=lr, alpha=alpha, batch_size=batch_size,
+            progress_path=progress_path, resume=resume, verbose=verbose,
+            seed=self.seed + 1)
+
+    def inverse_transform(self, inputs, epochs: int,
+                          data_indices: list[int] | None = None,
+                          num_rep: int = 8, lr: float = 0.2,
+                          alpha: float = 0.5, batch_size: int = 512,
+                          progress_path: str | None = None,
+                          resume: bool = False,
+                          verbose: bool = False) -> list[torch.Tensor]:
+        """Reconstructs original features from latent embeddings (the
+        JAX package's fixed invert semantics): query graphs in latent
+        space with output-curve weights, reconstructions initialized as
+        affinity-weighted averages of training data rows and optimized
+        with the inverse attract/repel losses against the stored
+        features. ``progress_path`` / ``resume`` as in :meth:`fit`."""
+        queries, indices = self._queries(inputs, data_indices)
+        tasks, statics, inits = [], [], []
+        with self.timer.phase("invert/graph"):
+            for z, idx in zip(queries, indices):
+                enc = self.encoders[idx]
+                nbrs, weights, init = enc.invert_graph(
+                    z, self.embeds[idx], self.data[idx], self.a, self.b)
+                task, static = query_task(nbrs, weights, batch_size,
+                                          ref=self.data[idx],
+                                          sigmas=enc.sigmas, rhos=enc.rhos)
+                tasks.append(task)
+                statics.append(static)
+                inits.append(init)
+        return self._query_layout(
+            "invert", tasks, statics, inits, epochs=epochs, num_rep=num_rep,
+            lr=lr, alpha=alpha, batch_size=batch_size,
+            progress_path=progress_path, resume=resume, verbose=verbose,
+            seed=self.seed + 2)
+
+    def _queries(self, inputs, data_indices):
+        """(2-D f32 query tensors, modality indices) of a transform or
+        invert call."""
+        self._require_fitted()
+        indices = (list(data_indices) if data_indices is not None
+                   else list(range(self.num_encoders)))
+        queries = [self._as_f32(x) for x in inputs]
+        queries = [q[None, :] if q.dim() == 1 else q for q in queries]
+        if len(queries) != len(indices):
+            raise ValueError("inputs and data_indices length mismatch")
+        return queries, indices
+
+    def _query_layout(self, mode: str, tasks, statics, inits, *, epochs,
+                      num_rep, lr, alpha, batch_size, progress_path, resume,
+                      verbose, seed) -> list[torch.Tensor]:
+        """The frozen-reference layout of transform / invert, with its
+        snapshots, resume and ``loss_history[mode]``."""
+        progress_path = _npz_path(progress_path)
+        start_epoch, snap_inits, opt_state = _load_progress(
+            progress_path, resume, len(inits), self.device)
+        with self.timer.phase(f"{mode}/layout"):
             embeds, hist = train_layout(
-                inits, tasks, statics, mode="transform", epochs=epochs,
-                num_rep=num_rep, lr=lr, alpha=alpha, batch_size=batch_size,
-                a=self.a, b=self.b, seed=self.seed + 1,
-                chunk_callback=_verbose_callback("transform epoch", epochs,
-                                                 verbose),
+                snap_inits or inits, tasks, statics, mode=mode,
+                epochs=epochs, num_rep=num_rep, lr=lr, alpha=alpha,
+                batch_size=batch_size, a=self.a, b=self.b, seed=seed,
+                chunk_callback=_progress_callback(f"{mode} epoch", epochs,
+                                                  progress_path, verbose),
+                start_epoch=start_epoch, init_opt_state=opt_state,
             )
-        self.loss_history["transform"] = hist.numpy()
+        self.loss_history[mode] = hist.numpy()
         return embeds
 
     @staticmethod
@@ -158,70 +328,66 @@ class MultimodalUMAP:
         """Gauss-Newton fit of the (a, b) curve (see models/curve.py)."""
         return _get_ab_coeffs(min_dist, num_iters=num_iters)
 
+    def save_state_dict(self, path: str) -> None:
+        """Saves the full model state (hyperparameters, (a, b), sigmas,
+        rhos, training data, graphs and embeddings) as the JAX package's
+        npz schema (utils/checkpoint.py)."""
+        self._require_fitted()
+        ckpt.save_state(path, {
+            "k_neighbors": self.k_neighbors, "out_dim": self.out_dim,
+            "min_dist": self.min_dist, "num_encoders": self.num_encoders,
+            "a": self.a, "b": self.b,
+            "spectral_method": self.spectral_method,
+            "knn_engine": self.knn_engine,
+            "sigmas": [e.sigmas for e in self.encoders],
+            "rhos": [e.rhos for e in self.encoders],
+            "data": self.data, "graphs": self.graphs, "embeds": self.embeds,
+        })
+
+    save = save_state_dict
+
+    @classmethod
+    def load_state_dict(cls, path: str,
+                        device: torch.device | str | None = None
+                        ) -> "MultimodalUMAP":
+        """Restores a model saved by :meth:`save_state_dict` (or by the
+        JAX package's) onto ``device``."""
+        dev = resolve_device(device)
+        return cls._from_state(ckpt.load_state(path, dev), dev)
+
+    load = load_state_dict
+
     @classmethod
     def from_numpy_state(cls, state, device: torch.device | str | None = None
                          ) -> "MultimodalUMAP":
-        """A fitted model from numpy arrays named as the JAX package's
-        checkpoint (``utils/checkpoint.py``) names them: ``a``, ``b``,
-        ``k_neighbors``, ``out_dim``, ``min_dist``, ``num_encoders`` and,
-        per modality i, ``sigmas_i``, ``rhos_i``, ``data_i``,
-        ``embeds_i``, ``graph_i_{rows,cols,weights,valid}``. A loaded
-        JAX checkpoint (``np.load(path)``), whose scalars sit in its
-        ``meta`` JSON, is accepted as it is."""
-        scalars = dict(state)
-        if "meta" in scalars:
-            meta = json.loads(str(scalars["meta"]))
-            if meta.get("bf16_keys"):
-                raise ValueError("bf16-stored checkpoints are not supported "
-                                 "by this port yet")
-            scalars.update({k: meta[k] for k in (
-                "a", "b", "k_neighbors", "out_dim", "min_dist",
-                "num_encoders") if k in meta})
-            for key in ("spectral_method", "knn_engine"):
-                if meta.get(key):
-                    scalars.setdefault(key, meta[key])
-        model = cls(int(scalars["k_neighbors"]), int(scalars["out_dim"]),
-                    float(scalars["min_dist"]), int(scalars["num_encoders"]),
-                    spectral_method=str(scalars.get("spectral_method", "auto")),
-                    knn_engine=scalars.get("knn_engine") or None,
-                    device=device)
-        model.a, model.b = float(scalars["a"]), float(scalars["b"])
-        dev = model.device
+        """A fitted model from numpy arrays named as the checkpoint names
+        them: ``a``, ``b``, ``k_neighbors``, ``out_dim``, ``min_dist``,
+        ``num_encoders`` and, per modality i, ``sigmas_i``, ``rhos_i``,
+        ``data_i``, ``embeds_i``, ``graph_i_{rows,cols,weights,valid}``.
+        An opened checkpoint (``np.load(path)``), whose scalars sit in
+        its ``meta`` JSON, is accepted as it is."""
+        dev = resolve_device(device)
+        return cls._from_state(ckpt.state_from_arrays(state, dev), dev)
 
-        def t(key, dtype=None):
-            return torch.as_tensor(np.array(state[key]), device=dev,
-                                   dtype=dtype)
-
-        model.data, model.embeds, model.graphs = [], [], []
-        for i, enc in enumerate(model.encoders):
-            enc.sigmas = t(f"sigmas_{i}", torch.float32)
-            enc.rhos = t(f"rhos_{i}", torch.float32)
-            model.data.append(t(f"data_{i}", torch.float32))
-            model.embeds.append(t(f"embeds_{i}", torch.float32))
-            n = model.data[-1].shape[0]
-            model.graphs.append(EdgeGraph(
-                rows=t(f"graph_{i}_rows", torch.int32),
-                cols=t(f"graph_{i}_cols", torch.int32),
-                weights=t(f"graph_{i}_weights", torch.float32),
-                valid=t(f"graph_{i}_valid", torch.bool),
-                num_rows=n, num_cols=n))
+    @classmethod
+    def _from_state(cls, state: dict, device: torch.device
+                    ) -> "MultimodalUMAP":
+        model = cls(state["k_neighbors"], state["out_dim"],
+                    state["min_dist"], state["num_encoders"],
+                    spectral_method=state["spectral_method"],
+                    knn_engine=state["knn_engine"], device=device)
+        model.a, model.b = state["a"], state["b"]
+        for enc, sig, rho in zip(model.encoders, state["sigmas"],
+                                 state["rhos"]):
+            enc.sigmas, enc.rhos = sig, rho
+        model.data = state["data"]
+        model.graphs = state["graphs"]
+        model.embeds = state["embeds"]
         return model
 
     def _require_fitted(self) -> None:
         if self.data is None or not self.embeds:
             raise RuntimeError("model is not fitted; call fit() first")
-
-
-def _verbose_callback(label: str, epochs: int, verbose: bool):
-    """Chunk-boundary loss readout (one host read per chunk)."""
-    if not verbose:
-        return None
-
-    def callback(done, params, optimizer, hist):
-        print(f"{label} {done}/{epochs}  loss {float(hist[-1]):.4f}",
-              flush=True)
-
-    return callback
 
 
 # Reference-compatible alias.

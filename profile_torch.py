@@ -1,14 +1,19 @@
-"""Profile the PyTorch port's fit layout epoch on one CUDA GPU.
+"""Profile the PyTorch port's layout epoch on one CUDA GPU.
 
-    python3 profile_torch.py [--epochs 20] [--out chiprun_out/profile]
+    python3 profile_torch.py [--mode fit|invert] [--epochs 20] [--out DIR]
 
-Builds the fit graphs of the chip-smoke main path (31,744 synthetic
-pairs at 768 / 4096 dims, k=15, out_dim=64), then runs ``--epochs``
-layout epochs twice: once timed (host clock around a synchronized run)
-and once under ``torch.profiler``. Prints JSON lines: the card, the ms
-per epoch, the device-busy share (summed kernel time over the profiled
-wall time) and the kernels that take the most device time. Writes the
-Chrome trace to ``--out``. Needs a GPU; imports nothing of JAX.
+``fit`` builds the fit graphs of the chip-smoke main path (31,744
+synthetic pairs at 768 / 4096 dims, k=15, out_dim=64) and profiles the
+fit layout. ``invert`` fits that model (60 epochs: the invert epoch's
+cost depends on shapes, not on how well the layout converged), embeds
+1,024 held-out texts and profiles the invert layout that reconstructs
+them as 4,096-d images (the ``embed_and_recon`` main path). Either mode
+runs ``--epochs`` layout epochs twice: once timed (host clock around a
+synchronized run) and once under ``torch.profiler``. Prints JSON lines:
+the card, the ms per epoch, the device-busy share (summed kernel time
+over the profiled wall time), peak device memory and the kernels that
+take the most device time. Writes the Chrome trace to ``--out``. Needs
+a GPU; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", choices=("fit", "invert"), default="fit")
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--out", default="chiprun_out/profile")
     args = ap.parse_args()
@@ -31,33 +37,53 @@ def main() -> None:
         raise SystemExit("profile_torch: needs a CUDA GPU")
     from multimodal_umap_tpu_torch import Config, MultimodalUMAP
     from multimodal_umap_tpu_torch.data.synthetic import clustered_modalities
-    from multimodal_umap_tpu_torch.models.layout import fit_task, train_layout
+    from multimodal_umap_tpu_torch.models.layout import (
+        fit_task, query_task, train_layout)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({"device": smi}), flush=True)
     cfg = Config()
-    data = clustered_modalities(31_744, dims=(768, 4096), seed=0,
+    data = clustered_modalities(31_744 + 1_024, dims=(768, 4096), seed=0,
                                 centers_seed=1)
+    train = [torch.from_numpy(x[:31_744]).cuda() for x in data.values()]
     model = MultimodalUMAP(cfg.k_neighbors, cfg.out_dim, cfg.min_dist, 2,
                            device="cuda")
-    graphs = [enc.fit_graph(torch.from_numpy(x).cuda())
-              for enc, x in zip(model.encoders, data.values())]
-    tasks, statics = zip(*(fit_task(d, cfg.batch_size) for _, d, _ in graphs))
-    inits = [init for _, _, init in graphs]
+    if args.mode == "fit":
+        graphs = [enc.fit_graph(x) for enc, x in zip(model.encoders, train)]
+        tasks, statics = zip(*(fit_task(d, cfg.batch_size)
+                               for _, d, _ in graphs))
+        inits = [init for _, _, init in graphs]
+    else:
+        model.fit(train, epochs=60, num_rep=cfg.num_rep, lr=cfg.lr,
+                  alpha=cfg.alpha, batch_size=cfg.batch_size)
+        z = model.transform([data["texts"][31_744:]], cfg.test_epochs, [0],
+                            num_rep=cfg.num_rep, lr=cfg.lr,
+                            batch_size=cfg.batch_size)[0]
+        enc = model.encoders[1]
+        nbrs, weights, init = enc.invert_graph(z, model.embeds[1],
+                                               model.data[1], model.a,
+                                               model.b)
+        task, static = query_task(nbrs, weights, cfg.batch_size,
+                                  ref=model.data[1], sigmas=enc.sigmas,
+                                  rhos=enc.rhos)
+        tasks, statics, inits = [task], [static], [init]
 
     def run(epochs):
-        return train_layout(inits, tasks, statics, mode="fit", epochs=epochs,
-                            num_rep=cfg.num_rep, lr=cfg.lr, alpha=cfg.alpha,
-                            batch_size=cfg.batch_size, a=model.a, b=model.b)
+        return train_layout(inits, tasks, statics, mode=args.mode,
+                            epochs=epochs, num_rep=cfg.num_rep, lr=cfg.lr,
+                            alpha=cfg.alpha, batch_size=cfg.batch_size,
+                            a=model.a, b=model.b)
 
     run(2)  # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run(args.epochs)
     torch.cuda.synchronize()
     epoch_ms = (time.perf_counter() - t0) * 1e3 / args.epochs
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -73,7 +99,8 @@ def main() -> None:
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     print(json.dumps({
-        "epochs": args.epochs, "epoch_ms": epoch_ms,
+        "mode": args.mode, "epochs": args.epochs, "epoch_ms": epoch_ms,
+        "peak_mem_gib": peak_gib,
         "profiled_wall_ms": wall_us / 1e3,
         "device_busy_share": device_us / wall_us,
         "kernel_launches_per_epoch": sum(e.count for e in events) / args.epochs,
@@ -83,7 +110,8 @@ def main() -> None:
                         for e in top],
     }), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out, "fit_layout_trace.json"))
+    prof.export_chrome_trace(
+        os.path.join(args.out, f"{args.mode}_layout_trace.json"))
 
 
 if __name__ == "__main__":

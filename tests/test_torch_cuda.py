@@ -69,6 +69,30 @@ def test_kernel_matches_plain_on_cuda(bf16, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_rows", [16, 1024])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_matches_plain_at_invert_shape(bf16, q_rows):
+    """The invert graph's kNN: latent queries (16 for the recon app,
+    1,024 for a test split) near N = 3,000 train embeddings at D = 64,
+    with the main path's per-tile width."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    r = torch.randn(3000, 64, generator=gen, device="cuda") * 2.0
+    q = r[:q_rows] + 0.05 * torch.randn(q_rows, 64, generator=gen,
+                                        device="cuda")
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, r = q.to(dt), r.to(dt)
+    tk = KT.bf16_tile_k(15, 3000) if bf16 else 15
+    d_k, i_k = KT.knn_tile(q, r, tk)
+    torch.cuda.synchronize()
+    d_p, i_p = KT.knn_tile_plain(q, r, tk)
+    scale = float((q.float() ** 2).sum(1).max()
+                  + (r.float() ** 2).sum(1).max())
+    rtol = 1e-4 if bf16 else 1e-5
+    _assert_tie_aware(d_k, i_k, d_p, i_p, rtol * (d_p.abs() + scale))
+
+
+@pytest.mark.cuda
 def test_row_norms_and_geometry_on_cuda():
     """The norm pre-pass against its plain version (another summation
     order: 1e-5 of the norm), and the shared memory the library asks

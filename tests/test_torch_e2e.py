@@ -1,8 +1,9 @@
-"""PyTorch port end to end on the CPU: fit + transform against the
-executed reference's golden bands (the same data, seeds, configuration
-and bands as tests/test_reference_parity_e2e.py: cosine >= ref - 0.03,
-knn5 >= 0.9 x ref averaged over model seeds 0-2, trustworthiness >=
-ref - 0.02 per modality). Recon waits for the invert slice.
+"""PyTorch port end to end on the CPU: fit + transform + inverse
+transform against the executed reference's golden bands (the same data,
+seeds, configuration and bands as tests/test_reference_parity_e2e.py:
+cosine >= ref - 0.03, knn5 >= 0.9 x ref averaged over model seeds 0-2,
+text->image recon MSE <= 1.1 x ref, trustworthiness >= ref - 0.02 per
+modality).
 """
 
 import glob
@@ -56,12 +57,19 @@ def _run_pipeline(golden):
         knn5_vals.append(_knn5(e0, e1))
         if seed == 0:
             model, c0, c1 = m, e0, e1
+    z = model.transform([test[0]], epochs=cfg["test_epochs"],
+                        data_indices=[0], num_rep=4, lr=0.05, batch_size=64)
+    recon = model.inverse_transform(z, epochs=cfg["test_epochs"],
+                                    data_indices=[1], num_rep=4, lr=0.05,
+                                    batch_size=64)[0].numpy()
+    mse = float(np.mean((recon - test[1]) ** 2))
     c0 = c0 / np.maximum(np.linalg.norm(c0, axis=1, keepdims=True), 1e-12)
     c1 = c1 / np.maximum(np.linalg.norm(c1, axis=1, keepdims=True), 1e-12)
     trust = [trustworthiness(train[i], model.embeds[i], k=10)
              for i in range(2)]
     return {"cosine": float((c0 * c1).sum(1).mean()),
-            "knn5": float(np.mean(knn5_vals)), "trustworthiness": trust}
+            "knn5": float(np.mean(knn5_vals)), "recon_mse": mse,
+            "trustworthiness": trust}
 
 
 @pytest.fixture(scope="module", params=GOLDEN_FILES,
@@ -82,6 +90,12 @@ def test_knn_retrieval_parity(case):
     golden, results = case
     ref = golden["reference"]["knn5"]
     assert results["knn5"] >= 0.9 * ref, (results, ref)
+
+
+def test_recon_mse_parity(case):
+    golden, results = case
+    ref = golden["reference"]["recon_mse"]
+    assert results["recon_mse"] <= 1.1 * ref, (results, ref)
 
 
 def test_trustworthiness_parity(case):

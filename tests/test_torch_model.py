@@ -197,6 +197,8 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "multimodal_umap_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "profile_torch.py"]
     assert len(files) > 15
+    assert {"app", "nn", "utils", "models", "ops"} <= {
+        p.parent.name for p in files}
     banned = ("jax", "jaxlib", "flax", "optax", "multimodal_umap_tpu")
     for path in files:
         for mod in _imported_modules(path):
