@@ -49,18 +49,55 @@ line:
    module on the CPU in float32 and float64: the card's float32 decode
    agrees with both (rtol 1e-4, atol 1e-5 per unit of the output's
    largest magnitude);
-7. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
+7. cli_path -- the CLI, ``main_torch.main`` in process, with the launch
+   counts set to 0 just before it: ``--synthetic --n_samples 131072
+   --feature_dtype bfloat16 --knn_engine approx`` and the ``Config``
+   defaults otherwise (k=15, out_dim=64, 600 / 120 epochs), its model,
+   logs and recon-app output under ``chip_smoke_out/cli/`` (no VAE
+   weights: the app's offline latent dump). Prints the phase seconds,
+   ``metrics.json``, the table dtypes, the peak device memory at the end
+   of each fit phase (above what was live before), the archive's bytes
+   and ``bf16_keys``, and the kernel launches per mode and per launch
+   signature (Q, N, D, dtype, tile_k, self); reloads the archive (tables
+   bit-equal and bf16, ``feature_dtype`` "bfloat16"). Fails on cosine <
+   0.9, a non-finite metric or fit loss, a table that is not bf16, a
+   graph stage whose peak holds an f32 copy of the image table (peak
+   minus the tables minus the kNN's candidate buffers of one block --
+   the kernel's outputs and their merge copies -- at or above the
+   table's f32 size), or a kernel mode the run never launched (bf16
+   tables in the kernel's bf16 mode; ``approx`` runs its f32 mode in the
+   recon app's latent-space invert graph);
+8. engine_checks -- ``lobpcg`` on the CLI model's text graph, from
+   ``--spectral lobpcg``'s operator and start block: the default run
+   (the JAX package's tolerance, whose test scales with the row count)
+   must stop at the iteration where the JAX package's rule, computed
+   here on the iterate, first passes for every column (its null-space
+   cosine and energy against Chebyshev are printed); a run with
+   ``tol=0`` (all 64 iterations) must agree with Chebyshev: the graph's
+   32 clusters are disconnected, so its null space is 32-dimensional and
+   the 33rd-65th eigenvalues lie close together; the null space
+   ([d^1/2, the first 31 columns]) by principal angles (cosines > 0.99)
+   and the block's Rayleigh energy within 1 % (the cosines of the whole
+   blocks are printed); ``knn(engine="approx")`` against
+   ``engine="xla"`` at the main-path block (ids tie-aware, f32
+   tolerance);
+9. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
    (norm pre-pass, tile kernel, candidate permute + merge ``topk``,
    exact f32 re-score), and the tile kernel at the other main-path
    shapes (D=768; the 1,024-row transform block; the invert block, the
    1,024 recon-query embeddings against the train embeddings at D=64;
-   the app's 16 of those rows): held against its plain version as in
-   phase 3 (bf16 tolerance), with its time, bound, plain and library
-   times;
-8. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
-   times of each kernel at the main-path block shape, launches on the
-   fit/eval path and the recon path;
-9. last line -- ``{"ok": true, "device": {...}}``.
+   the app's 16 of those rows; the f32 mode at the main-path block) and
+   at every launch signature of the CLI path, on the inputs of its first
+   launch there (bf16-stored fit blocks, f32 queries cast to bf16 in the
+   transform blocks, ``knn_test``'s recall blocks, the app's transform
+   and its f32-mode invert graph): held against its plain version as in
+   phase 3, with its time, bound, plain and library times;
+10. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
+    times of each kernel (the tile kernel's bf16 and f32 modes are its
+    two entry points) at the main-path block shape -- the f32 mode at
+    its launch on the CLI path, with the main-path block beside it --
+    and launches on the fit/eval path, the recon path and the CLI path;
+11. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -80,6 +117,10 @@ import torch
 N_TRAIN, N_TEST, DIMS, K = 31_744, 1_024, (768, 4096), 15
 BLOCK_ROWS = 8192
 N_APP = 16  # crossmodal_recon samples, as main.py picks them
+# The CLI path's pairs: 4x the flickr main path, about COCO train2017's
+# 118,287 images; its synthetic data has clustered_modalities' default
+# 32 clusters.
+N_CLI, N_CLUSTERS = 131_072, 32
 OUT_DIR = "chip_smoke_out"  # checkpoint + recon app output (git-ignored)
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
@@ -147,6 +188,17 @@ def library_tile_topk(q, r, tile_k, tile_c, *, exclude_self=False,
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def reset_counts(KT) -> None:
+    """Sets every kernel's launch count to 0."""
+    KT.KNN_TILE_BF16_LAUNCHES = KT.KNN_TILE_F32_LAUNCHES = 0
+    KT.ROW_NORM_LAUNCHES = 0
+
+
+def tile_launches(KT) -> int:
+    """Launches of the tile kernel in either mode."""
+    return KT.KNN_TILE_BF16_LAUNCHES + KT.KNN_TILE_F32_LAUNCHES
 
 
 def check(cond: bool, msg: str) -> None:
@@ -282,11 +334,11 @@ def recon_path(model, train_np, test_np, cfg, dev, out_dir):
     sync()
     t0 = time.perf_counter()
     z = embed(model, [texts], [0], cfg)
-    before = KT.KNN_TILE_LAUNCHES
+    before = tile_launches(KT)
     recon_out = recon(model, z, [1], cfg)[0]
     sync()
     line["embed_and_recon_seconds"] = time.perf_counter() - t0
-    line["invert_tile_launches"] = KT.KNN_TILE_LAUNCHES - before
+    line["invert_tile_launches"] = tile_launches(KT) - before
     line["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     line["invert_phase_seconds"] = {
         k: v for k, v in model.timer.report().items()
@@ -307,13 +359,13 @@ def recon_path(model, train_np, test_np, cfg, dev, out_dir):
     vae = random_vae(VAEConfig(), seed=0, device=dev)
     app_dir = os.path.join(out_dir, "crossmodal")
     shutil.rmtree(app_dir, ignore_errors=True)
-    before = KT.KNN_TILE_LAUNCHES
+    before = tile_launches(KT)
     t0 = time.perf_counter()
     app_recon = crossmodal_recon(samples, cfg, model, out_dir=app_dir,
                                  vae=vae)[0]
     sync()
     line["crossmodal_recon_seconds"] = time.perf_counter() - t0
-    line["app_tile_launches"] = KT.KNN_TILE_LAUNCHES - before
+    line["app_tile_launches"] = tile_launches(KT) - before
     latents = app_recon.reshape(-1, 4, 32, 32)
     vae.decode(latents)  # warm-up
     sync()
@@ -347,6 +399,197 @@ def recon_path(model, train_np, test_np, cfg, dev, out_dir):
     line["png_files"] = len(pngs)
     line["png_images"] = 2 * len(pngs)  # each file: original over recon
     return line, z[0], idx
+
+
+def cli_path(dev, out_dir):
+    """Phase 7 (see the module docstring). Returns (the phase's JSON
+    line, the model ``main_torch.main`` returned, its launch counts, its
+    tile-kernel census: per launch signature, the first launch's inputs
+    and the launch count)."""
+    import main_torch
+    from multimodal_umap_tpu_torch.models.mixture import MultimodalUMAP
+    from multimodal_umap_tpu_torch.ops import knn_tile as KT
+
+    cli_dir = os.path.abspath(os.path.join(out_dir, "cli"))
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    os.makedirs(cli_dir)
+    save_path = os.path.join(cli_dir, "models", "state.npz")
+    log_dir = os.path.join(cli_dir, "logs")
+    argv = ["--synthetic", "--n_samples", str(N_CLI),
+            "--feature_dtype", "bfloat16", "--knn_engine", "approx",
+            "--save_path", save_path, "--log_dir", log_dir]
+    # An observer around the wrapper (``knn_tiled`` looks it up at each
+    # call): it keeps the inputs of the first launch of each signature,
+    # so that phase 9 holds the kernel against its plain version at
+    # every shape this path gave it. The counts stay the wrapper's own.
+    census = {}
+    wrapper = KT.knn_tile
+
+    def observed(q, r, tile_k, *, exclude_self=False, row_offset=0,
+                 q_sq=None, r_sq=None):
+        key = (q.shape[0], r.shape[0], q.shape[1], str(q.dtype), tile_k,
+               exclude_self)
+        if key not in census:
+            census[key] = {"q": q.clone(), "r": r, "row_offset": row_offset,
+                           "launches": 0}
+        census[key]["launches"] += 1
+        return wrapper(q, r, tile_k, exclude_self=exclude_self,
+                       row_offset=row_offset, q_sq=q_sq, r_sq=r_sq)
+
+    cwd = os.getcwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts(KT)
+    t0 = time.perf_counter()
+    os.chdir(cli_dir)  # the recon app writes results/ where it runs
+    KT.knn_tile = observed
+    try:
+        model = main_torch.main(argv)
+    finally:
+        KT.knn_tile = wrapper
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"knn_tile_bf16": KT.KNN_TILE_BF16_LAUNCHES,
+                "knn_tile_f32": KT.KNN_TILE_F32_LAUNCHES,
+                "knn_rownorm": KT.ROW_NORM_LAUNCHES}
+    peak_run = torch.cuda.max_memory_allocated() - base
+
+    tables = sum(d.numel() * d.element_size() for d in model.data)
+    peaks = {k: v - base for k, v in model.timer.peak_bytes.items()
+             if k.startswith("fit/")}
+    tk = KT.bf16_tile_k(K, N_CLI - 1)
+    # One row block's candidates: the kernel's (col_tiles, rows, tile_k)
+    # f32 distances and int32 ids, and the merge's permuted copies.
+    cand_bytes = 4 * 4 * KT._num_col_tiles(N_CLI) * BLOCK_ROWS * tk
+    f32_image = N_CLI * DIMS[1] * 4
+    graph_extra = peaks["fit/graph_1"] - tables - cand_bytes
+    with open(os.path.join(log_dir, "metrics.json")) as f:
+        metrics = json.load(f)
+    with np.load(save_path) as z:
+        bf16_keys = json.loads(str(z["meta"]))["bf16_keys"]
+    t0 = time.perf_counter()
+    loaded = MultimodalUMAP.load_state_dict(save_path, device=dev)
+    torch.cuda.synchronize()
+    load_seconds = time.perf_counter() - t0
+    reload_ok = loaded.feature_dtype == "bfloat16" and all(
+        a.dtype == torch.bfloat16 and torch.equal(a, b)
+        for a, b in zip(loaded.data, model.data))
+    del loaded
+    fit_loss = model.loss_history["fit"]
+    gib = 2.0**-30
+    line = {
+        "phase": "cli_path", "argv": argv, "n_train": N_CLI,
+        "n_test": max(16, N_CLI // 10), "main_seconds": seconds,
+        "phase_seconds": model.timer.report(), "metrics": metrics,
+        "data_dtypes": [str(d.dtype) for d in model.data],
+        "feature_dtype": model.feature_dtype,
+        "fit_loss_first_last": [float(fit_loss[0]), float(fit_loss[-1])],
+        "peak_gib_at_end_of": {k: v * gib for k, v in peaks.items()},
+        "peak_gib_whole_run": peak_run * gib,
+        "tables_gib": tables * gib,
+        "knn_candidate_gib": cand_bytes * gib,
+        "graph_peak_minus_tables_and_candidates_gib": graph_extra * gib,
+        "f32_image_table_gib": f32_image * gib,
+        "archive_bytes": os.path.getsize(save_path), "bf16_keys": bf16_keys,
+        "reload_seconds": load_seconds, "reload_bit_equal_bf16": reload_ok,
+        "launches": launches,
+        "tile_launches_by_signature": [
+            {"Q": q, "N": n, "D": d, "dtype": dt, "tile_k": tk,
+             "exclude_self": ex, "launches": v["launches"]}
+            for (q, n, d, dt, tk, ex), v in census.items()],
+    }
+    return line, model, launches, census
+
+
+def engine_checks(cli_model, images, dev):
+    """Phase 8 (see the module docstring)."""
+    from multimodal_umap_tpu_torch.ops import spectral as PS
+    from multimodal_umap_tpu_torch.ops.knn import knn
+
+    graph = cli_model.graphs[0]
+    out_dim, n = cli_model.out_dim, graph.num_rows
+    sync = torch.cuda.synchronize
+    # --spectral lobpcg's operator and start block; lobpcg_standard's
+    # defaults are the JAX package's (m=64, tol = f32 epsilon)
+    matvec, x0 = PS.lobpcg_problem(graph, out_dim)
+    runs = {"lobpcg": lambda: PS.lobpcg_standard(matvec, x0, m=64),
+            "lobpcg_tol0": lambda: PS.lobpcg_standard(matvec, x0, m=64,
+                                                      tol=0.0),
+            "chebyshev": lambda: PS.spectral_embedding(
+                graph, out_dim, method="chebyshev")}
+    out, seconds = {}, {}
+    for name, run in runs.items():
+        sync()
+        t0 = time.perf_counter()
+        out[name] = run()
+        sync()
+        seconds[name] = time.perf_counter() - t0
+
+    def jax_rule_converged(theta, x):
+        """Columns that pass the JAX package's stopping test,
+        |A v - theta v| < eps * 10 * n * (theta + |A v|)."""
+        ax = matvec(x)
+        res = torch.linalg.vector_norm(ax - theta[None, :] * x, dim=0)
+        eps = torch.finfo(torch.float32).eps
+        bound = eps * 10 * n * (torch.linalg.vector_norm(ax, dim=0) + theta)
+        return int((res < bound).sum())
+
+    # The default run stops where the JAX rule says: every column passes
+    # at its last iteration (unless it ran all 64), and not every column
+    # passed one iteration earlier.
+    theta, vecs, iters = out["lobpcg"]
+    at_stop = jax_rule_converged(theta, vecs)
+    before = None
+    if iters > 1:
+        before = jax_rule_converged(*PS.lobpcg_standard(matvec, x0,
+                                                        m=iters - 1)[:2])
+    rule = {"columns": out_dim + 1, "converged_at_stop": at_stop,
+            "converged_one_iteration_earlier": before,
+            "stops_as_jax": (iters == 64 or at_stop == out_dim + 1)
+            and (before is None or before < out_dim + 1)}
+    vectors = {"lobpcg": vecs[:, 1:], "lobpcg_tol0": out["lobpcg_tol0"][1][:, 1:]}
+    iterations = {"lobpcg": iters, "lobpcg_tol0": out["lobpcg_tol0"][2]}
+    lap = PS._Laplacian(graph)
+    trivial = (1.0 / lap.d_inv_sqrt)[:, None]
+
+    def cosines(a, b):
+        qa, _ = torch.linalg.qr(a.double())
+        qb, _ = torch.linalg.qr(b.double())
+        return torch.linalg.svdvals(qa.T @ qb)
+
+    def energy(v):
+        qv, _ = torch.linalg.qr(v)
+        return float((qv * lap(qv)).sum())
+
+    def null_space(v):
+        return torch.cat([trivial, v[:, :N_CLUSTERS - 1]], 1)
+
+    cheb = out["chebyshev"]
+    e_cheb = energy(cheb)
+    lobpcg = {"graph_rows": n, "out_dim": out_dim,
+              "null_space_dim": N_CLUSTERS, "energy_chebyshev": e_cheb,
+              "chebyshev_seconds": seconds["chebyshev"],
+              "default_run_stopping_rule": rule}
+    for name, v in vectors.items():
+        whole = cosines(v, cheb)
+        lobpcg[name] = {
+            "iterations": iterations[name], "seconds": seconds[name],
+            "finite": bool(torch.isfinite(v).all()),
+            "null_space_cosine_min": float(
+                cosines(null_space(v), null_space(cheb)).min()),
+            "whole_block_cosines_min": float(whole.min()),
+            "whole_block_cosines_median": float(whole.median()),
+            "energy": energy(v)}
+    q32 = images[:BLOCK_ROWS]
+    d_a, i_a = knn(q32, images, K, exclude_self=True, engine="approx")
+    d_x, i_x = knn(q32, images, K, exclude_self=True, engine="xla")
+    approx_cmp = tie_aware_match(d_a ** 2, i_a, d_x ** 2, i_x,
+                                 sq_scale(q32, images), RTOL[False])
+    return {"phase": "engine_checks", "lobpcg": lobpcg,
+            "approx_vs_xla": {"shape": [BLOCK_ROWS, images.shape[0],
+                                        images.shape[1]], **approx_cmp}}
 
 
 def main() -> None:
@@ -496,30 +739,30 @@ def main() -> None:
     # 5. main path at full width
     cfg = Config()
     torch.cuda.synchronize()
-    KT.KNN_TILE_LAUNCHES = 0
-    KT.ROW_NORM_LAUNCHES = 0
+    reset_counts(KT)
     launches = {}
     phases = {}
     t0 = time.perf_counter()
     model = train(train_np, cfg, device=dev)
     torch.cuda.synchronize()
     phases["train"] = time.perf_counter() - t0
-    launches["after_fit"] = KT.KNN_TILE_LAUNCHES
+    launches["after_fit"] = tile_launches(KT)
     t0 = time.perf_counter()
     cosine = similarity_test(test_np, cfg, model, return_values=True,
                              quiet=True)
     phases["similarity_test"] = time.perf_counter() - t0
-    launches["after_transform"] = KT.KNN_TILE_LAUNCHES
+    launches["after_transform"] = tile_launches(KT)
     t0 = time.perf_counter()
     knn5 = knn_test(test_np, cfg, k=5, model=model, return_values=True,
                     quiet=True)
     phases["knn_test"] = time.perf_counter() - t0
-    launches["after_knn_test"] = KT.KNN_TILE_LAUNCHES
+    launches["after_knn_test"] = tile_launches(KT)
     t0 = time.perf_counter()
     trust = [trustworthiness_sampled(train_np[k], model.embeds[i], k=10)
              for i, k in enumerate(train_np)]
     phases["trustworthiness_sampled"] = time.perf_counter() - t0
-    main_launches = KT.KNN_TILE_LAUNCHES
+    main_launches = KT.KNN_TILE_BF16_LAUNCHES
+    main_f32_launches = KT.KNN_TILE_F32_LAUNCHES
     norm_launches = KT.ROW_NORM_LAUNCHES
     embeds_ok = all(
         tuple(e.shape) == (N_TRAIN, cfg.out_dim) and bool(torch.isfinite(e).all())
@@ -548,11 +791,10 @@ def main() -> None:
 
     # 6. the recon path (save/load, embed_and_recon, crossmodal_recon)
     torch.cuda.synchronize()
-    KT.KNN_TILE_LAUNCHES = 0
-    KT.ROW_NORM_LAUNCHES = 0
+    reset_counts(KT)
     rline, invert_q, app_rows = recon_path(model, train_np, test_np, cfg,
                                            dev, OUT_DIR)
-    recon_launches = KT.KNN_TILE_LAUNCHES
+    recon_launches = KT.KNN_TILE_BF16_LAUNCHES
     recon_norm_launches = KT.ROW_NORM_LAUNCHES
     rline.update(knn_tile_launches=recon_launches,
                  row_norm_launches=recon_norm_launches)
@@ -573,8 +815,48 @@ def main() -> None:
     check(rline["png_files"] == N_APP, "recon app wrote the wrong PNG count")
     check(recon_launches > 0 and recon_norm_launches > 0,
           "the recon path launched no kernel")
+    recon_f32_launches = KT.KNN_TILE_F32_LAUNCHES
 
-    # 7. knn_tiled's stages at the main-path block (rows [0, 8192) of the
+    # 7. the CLI path at 131,072 pairs, bf16-stored tables
+    cline, cli_model, cli_launches, census = cli_path(dev, OUT_DIR)
+    emit(cline)
+    metrics = cline["metrics"]
+    cli_cos = metrics["cosine_similarity"]
+    check(cline["data_dtypes"] == ["torch.bfloat16"] * 2
+          and cline["feature_dtype"] == "bfloat16",
+          "CLI fit tables are not bf16")
+    check(all(np.isfinite(v) for v in [cli_cos, metrics["knn_accuracy@1"],
+                                       *cli_model.loss_history["fit"]]),
+          "CLI path: non-finite metric or fit loss")
+    check(cli_cos >= 0.9, f"CLI path cosine {cli_cos} < 0.9")
+    check(cline["graph_peak_minus_tables_and_candidates_gib"]
+          < cline["f32_image_table_gib"],
+          "CLI fit's graph stage holds an f32 copy of the image table")
+    check(cline["bf16_keys"] == ["data_0", "data_1"]
+          and cline["reload_bit_equal_bf16"],
+          "CLI archive not bf16, or its reload not bit-equal bf16")
+    check(metrics["knn_engine"] == "approx", "CLI metrics lost the engine")
+    check(all(v > 0 for v in cli_launches.values()),
+          f"CLI path left a kernel mode unlaunched: {cli_launches}")
+
+    # 8. lobpcg and approx on the card
+    eline = engine_checks(cli_model, images, dev)
+    emit(eline)
+    lob = eline["lobpcg"]
+    full = lob["lobpcg_tol0"]
+    check(lob["lobpcg"]["finite"] and full["finite"],
+          "lobpcg returned non-finite vectors")
+    check(lob["default_run_stopping_rule"]["stops_as_jax"],
+          "--spectral lobpcg did not stop where the JAX package's rule does")
+    check(full["null_space_cosine_min"] > 0.99,
+          "lobpcg's null space disagrees with Chebyshev's")
+    check(full["energy"] <= 1.01 * lob["energy_chebyshev"],
+          "lobpcg's block energy is > 1 % above Chebyshev's")
+    check(eline["approx_vs_xla"]["values_ok"]
+          and eline["approx_vs_xla"]["ids_ok"],
+          "approx engine disagrees with the exact engine")
+
+    # 9. knn_tiled's stages at the main-path block (rows [0, 8192) of the
     # D=4096 fit graph, bf16), and the tile kernel at the other shapes,
     # each also held against its plain version there
     from multimodal_umap_tpu_torch.ops.knn import _exact_rescore_sq
@@ -601,14 +883,18 @@ def main() -> None:
 
     def rescore():
         d2 = _exact_rescore_sq(q32, images, ids_c.clamp(0, N_TRAIN - 1),
-                               chunk=512)
+                               chunk=KT.rescore_chunk(cand, DIMS[1]))
         d2 = d2.masked_fill((ids_c >= N_TRAIN) | (ids_c == rows), float("inf"))
         vals, sel = torch.topk(d2, K, dim=1, largest=False)
         return vals, ids_c.gather(1, sel)
 
-    def bound_ms(nq, n, d, tile_k):
-        t_ops = 2.0 * nq * n * d / H100_BF16_FLOPS * 1e3
-        nbytes = (2.0 * (nq + n) * d + 4.0 * (nq + n)
+    def bound_ms(nq, n, d, tile_k, bf16=True):
+        """Operations at the mode's peak (bf16 tensor cores, or f32 off
+        them) against the bytes: both tables read once (plus the bf16
+        norms), the (col_tiles, nq, tile_k) distances and ids written."""
+        peak, size = (H100_BF16_FLOPS, 2.0) if bf16 else (H100_F32_FLOPS, 4.0)
+        t_ops = 2.0 * nq * n * d / peak * 1e3
+        nbytes = (size * (nq + n) * d + (4.0 * (nq + n) if bf16 else 0.0)
                   + 8.0 * -(-n // KT.TILE_C) * nq * tile_k)
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -623,30 +909,47 @@ def main() -> None:
     del d_c, i_c, ids_c
     other = []
     test_images = torch.from_numpy(test_np["images"]).to(dev)
-    for name, qo, ro, ex in (
-            ("fit block, D=768", texts[:BLOCK_ROWS], texts, True),
-            ("transform block, D=4096", test_images, images, False),
-            ("invert block, D=64", invert_q, model.embeds[1], False),
-            ("app invert query, D=64", invert_q[torch.as_tensor(app_rows, device=dev)],
-             model.embeds[1], False)):
-        qo, ro = qo.to(torch.bfloat16), ro.to(torch.bfloat16)
-        qs, rs = KT.row_norms_sq(qo), KT.row_norms_sq(ro)
-        got = KT.knn_tile(qo, ro, tk, exclude_self=ex, q_sq=qs, r_sq=rs)
+    cases = [
+        ("fit block, D=768", texts[:BLOCK_ROWS], texts, tk, True, 0, True),
+        ("transform block, D=4096", test_images, images, tk, False, 0, True),
+        ("invert block, D=64", invert_q, model.embeds[1], tk, False, 0, True),
+        ("app invert query, D=64",
+         invert_q[torch.as_tensor(app_rows, device=dev)], model.embeds[1],
+         tk, False, 0, True),
+        ("fit block, D=4096, f32 mode (approx)", q32, images, K, True, 0,
+         False)]
+    # every signature the CLI path launched, at its first launch's inputs
+    for (nq, n, d, dt, tko, ex), v in census.items():
+        bf16 = dt == str(torch.bfloat16)
+        cases.append((f"CLI {nq} x {n}, D={d}, {'bf16' if bf16 else 'f32'}"
+                      f"{', self' if ex else ''} ({v['launches']} launches)",
+                      v["q"], v["r"], tko, ex, v["row_offset"], bf16))
+    for name, qo, ro, tko, ex, off, bf16 in cases:
+        dt = torch.bfloat16 if bf16 else torch.float32
+        qo, ro = qo.to(dt), ro.to(dt)  # no copy for the bf16-stored tables
+        qs, rs = ((KT.row_norms_sq(qo), KT.row_norms_sq(ro)) if bf16
+                  else (None, None))
+        got = KT.knn_tile(qo, ro, tko, exclude_self=ex, row_offset=off,
+                          q_sq=qs, r_sq=rs)
         torch.cuda.synchronize()
-        want = KT.knn_tile_plain(qo, ro, tk, exclude_self=ex)
-        cmp = tie_aware_match(*got, *want, sq_scale(qo, ro), RTOL[True])
+        want = KT.knn_tile_plain(qo, ro, tko, exclude_self=ex, row_offset=off)
+        cmp = tie_aware_match(*got, *want, sq_scale(qo, ro), RTOL[bf16])
         del got, want
-        b_ms, b_by = bound_ms(qo.shape[0], ro.shape[0], ro.shape[1], tk)
+        b_ms, b_by = bound_ms(qo.shape[0], ro.shape[0], ro.shape[1], tko,
+                              bf16)
         other.append({
-            "shape": name, "Q": qo.shape[0], "N": ro.shape[0],
-            "D": ro.shape[1], "tile_k": tk, "bound_ms": b_ms, "bound_by": b_by,
-            "ms": cuda_ms(lambda: KT.knn_tile(qo, ro, tk, exclude_self=ex,
-                                              q_sq=qs, r_sq=rs), 10),
+            "shape": name, "mode": "bf16" if bf16 else "f32",
+            "Q": qo.shape[0], "N": ro.shape[0], "D": ro.shape[1],
+            "tile_k": tko, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": cuda_ms(lambda: KT.knn_tile(
+                qo, ro, tko, exclude_self=ex, row_offset=off, q_sq=qs,
+                r_sq=rs), 10),
             "plain_ms": cuda_ms(lambda: KT.knn_tile_plain(
-                qo, ro, tk, exclude_self=ex), 3),
+                qo, ro, tko, exclude_self=ex, row_offset=off), 3),
             "library_ms": cuda_ms(lambda: library_tile_topk(
-                qo, ro, tk, KT.TILE_C, exclude_self=ex), 10),
+                qo, ro, tko, KT.TILE_C, exclude_self=ex, row_offset=off), 10),
             "vs_plain": cmp})
+    del census, cases
     emit({"phase": "knn_stages", "shape": {"Q": BLOCK_ROWS, "N": N_TRAIN,
                                            "D": DIMS[1], "tile_k": tk,
                                            "cand": cand, "k": K},
@@ -654,8 +957,17 @@ def main() -> None:
     check(all(o["vs_plain"]["values_ok"] and o["vs_plain"]["ids_ok"]
               for o in other),
           "tile kernel disagrees with plain at a main-path shape")
+    f32_block = next(o for o in other if o["mode"] == "f32"
+                     and not o["shape"].startswith("CLI"))
+    f32_cli = [o for o in other if o["mode"] == "f32"
+               and o["shape"].startswith("CLI")]
+    check(len(f32_cli) == 1, "expected one f32-mode signature on the CLI "
+          f"path, got {len(f32_cli)}")
+    f32_row = f32_cli[0]  # the recon app's invert graph under approx
 
-    # 8. kernels line: the fit graph's main-path block at D=4096, bf16
+    # 10. kernels line: the fit graph's main-path block at D=4096, bf16;
+    # f32 mode at its one launch on a driven path (the CLI's recon app,
+    # 16 x 131,072 at D=64), with the main-path block in f32 beside it
     ms = stages["tile_kernel_ms"]
     plain_ms = cuda_ms(lambda: KT.knn_tile_plain(qb, rb, tk, exclude_self=True), 3)
     library_ms = cuda_ms(lambda: library_tile_topk(
@@ -666,14 +978,19 @@ def main() -> None:
     n_ops = 2.0 * rows_all * DIMS[1]
     t_nb = n_bytes / H100_BYTES_PER_S * 1e3
     t_no = n_ops / H100_F32_FLOPS * 1e3
+    f32_by_path = {"fit_eval": main_f32_launches,
+                   "recon": recon_f32_launches,
+                   "cli": cli_launches["knn_tile_f32"]}
     print(json.dumps({"kernels": [{
         "name": "knn_tile",
         "route": "cuda",
         "source": "multimodal_umap_tpu_torch/csrc/knn_tile.cu",
         "replaces": "multimodal_umap_tpu/ops/knn_pallas.py:48",
-        "launches": main_launches + recon_launches,
+        "launches": main_launches + recon_launches
+        + cli_launches["knn_tile_bf16"],
         "launches_by_path": {"fit_eval": main_launches,
-                             "recon": recon_launches},
+                             "recon": recon_launches,
+                             "cli": cli_launches["knn_tile_bf16"]},
         "max_abs_err": main_block_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -683,13 +1000,34 @@ def main() -> None:
         "shape": {"Q": BLOCK_ROWS, "N": N_TRAIN, "D": DIMS[1], "tile_k": tk,
                   "mode": "bf16"},
     }, {
+        "name": "knn_tile_f32",
+        "route": "cuda",
+        "source": "multimodal_umap_tpu_torch/csrc/knn_tile.cu",
+        "replaces": "multimodal_umap_tpu/ops/knn_pallas.py:48",
+        "launches": sum(f32_by_path.values()),
+        "launches_by_path": f32_by_path,
+        "max_abs_err": f32_row["vs_plain"]["max_abs_err"],
+        "ms": f32_row["ms"],
+        "plain_ms": f32_row["plain_ms"],
+        "bound_ms": f32_row["bound_ms"],
+        "bound_by": f32_row["bound_by"],
+        "library_ms": f32_row["library_ms"],
+        "shape": {"Q": f32_row["Q"], "N": f32_row["N"], "D": f32_row["D"],
+                  "tile_k": f32_row["tile_k"], "mode": "f32"},
+        "at_main_path_block": {
+            k: f32_block[k] for k in ("Q", "N", "D", "tile_k", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+    }, {
         "name": "knn_rownorm",
         "route": "cuda",
         "source": "multimodal_umap_tpu_torch/csrc/knn_tile.cu",
         "replaces": "multimodal_umap_tpu/ops/knn_pallas.py:74",
-        "launches": norm_launches + recon_norm_launches,
+        "launches": norm_launches + recon_norm_launches
+        + cli_launches["knn_rownorm"],
         "launches_by_path": {"fit_eval": norm_launches,
-                             "recon": recon_norm_launches},
+                             "recon": recon_norm_launches,
+                             "cli": cli_launches["knn_rownorm"]},
         "max_abs_err": norm_err,
         "ms": stages["norm_prepass_ms"],
         "plain_ms": cuda_ms(lambda: (KT.row_norms_sq_plain(qb),

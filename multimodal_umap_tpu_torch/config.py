@@ -27,12 +27,15 @@ class Config:
         test_epochs: epochs for ``transform``.
         log_dir: per-epoch loss log directory (``utils/logging.py``).
         seed: base seed for all stochastic stages.
-        spectral_method: "auto", "dense" or "chebyshev" (ops/spectral.py).
+        spectral_method: "auto", "dense", "lobpcg" or "chebyshev"
+            (ops/spectral.py).
         knn_engine: kNN engine (ops/knn.py) -- None = device default
             (bf16 tile kernel + exact f32 re-score on CUDA, exact f32
-            panels on the CPU); or "bf16" / "xla" / "pallas" / "stream".
-        feature_dtype: storage dtype of the training feature tables
-            (only "float32" in this port so far).
+            panels on the CPU); or "bf16" / "xla" / "pallas" / "approx"
+            / "stream".
+        feature_dtype: storage dtype of the training feature tables,
+            "float32" or "bfloat16" (half the device memory; distances
+            re-scored exactly w.r.t. the stored values).
         progress_path: optimizer-state snapshot file of ``train``'s fit.
         resume: continue that fit from its snapshot.
         graph_cache_path: fit graph-stage cache file.

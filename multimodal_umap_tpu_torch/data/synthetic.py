@@ -12,6 +12,9 @@ import torch
 
 from ..utils.device import resolve_device
 
+# Rows drawn at a time (in f32) for a table stored in another dtype.
+ROW_CHUNK = 65_536
+
 
 def _names(dims) -> list[str]:
     return (["texts", "images"] if len(dims) == 2
@@ -58,10 +61,19 @@ def clustered_modalities_device(
     seed: int = 0,
     centers_seed: int | None = None,
     device: torch.device | str | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
     """Device-side variant of :func:`clustered_modalities`, drawn from
     ``torch.Generator``s on ``device``: the same distribution, not the
-    same numbers."""
+    same numbers.
+
+    ``dtype`` is the output dtype. Any other than float32 is drawn
+    ``ROW_CHUNK`` rows at a time in f32 and written into a preallocated
+    ``dtype`` table, so the f32 transient is ``ROW_CHUNK x d`` rather than
+    the whole table (bf16 tables beyond the size an f32 draw would fit);
+    such draws consume the generator in another order than the f32 path
+    (same distribution).
+    """
     dev = resolve_device(device)
     if centers_seed is None:
         centers_seed = seed
@@ -69,10 +81,15 @@ def clustered_modalities_device(
     centers_gen = torch.Generator(device=dev).manual_seed(centers_seed ^ 0x5EED)
     labels = torch.randint(0, n_clusters, (n_samples,), generator=gen,
                            device=dev)
+    chunk = n_samples if dtype == torch.float32 else ROW_CHUNK
     out = {}
     for name, d in zip(_names(dims), dims):
         centers = torch.randn(n_clusters, d, generator=centers_gen,
                               device=dev) * cluster_scale
-        noise = torch.randn(n_samples, d, generator=gen, device=dev)
-        out[name] = centers[labels] + noise * noise_scale
+        table = torch.empty((n_samples, d), dtype=dtype, device=dev)
+        for s in range(0, n_samples, chunk):
+            lab = labels[s:s + chunk]
+            noise = torch.randn(lab.shape[0], d, generator=gen, device=dev)
+            table[s:s + chunk] = noise.mul_(noise_scale).add_(centers[lab])
+        out[name] = table
     return out

@@ -19,15 +19,15 @@ from ..ops.knn import knn
 
 def train(data: dict, cfg: Config, device: torch.device | str | None = None,
           verbose: bool = False) -> MultimodalUMAP:
-    """Trains a multimodal UMAP model on a data dict, with the snapshot
-    options of ``cfg`` (``progress_path``, ``resume``,
-    ``graph_cache_path``)."""
+    """Trains a multimodal UMAP model on a data dict, with the storage
+    dtype (``feature_dtype``) and the snapshot options of ``cfg``
+    (``progress_path``, ``resume``, ``graph_cache_path``)."""
     tensors = [data[key] for key in data]
     model = MultimodalUMAP(
         k_neighbors=cfg.k_neighbors, out_dim=cfg.out_dim,
         min_dist=cfg.min_dist, num_encoders=len(tensors), seed=cfg.seed,
         spectral_method=cfg.spectral_method, knn_engine=cfg.knn_engine,
-        device=device,
+        device=device, feature_dtype=cfg.feature_dtype,
     )
     model.fit(tensors, epochs=cfg.train_epochs, num_rep=cfg.num_rep,
               lr=cfg.lr, alpha=cfg.alpha, batch_size=cfg.batch_size,

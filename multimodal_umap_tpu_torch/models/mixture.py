@@ -11,7 +11,9 @@ the reference's signatures (lr=0.2, alpha=0.5, batch_size=512); the
 experiment values come from ``Config``.
 
 Every tensor lives on ``device`` (default CUDA; without a GPU that
-raises unless the caller passes ``device="cpu"``).
+raises unless the caller passes ``device="cpu"``). The training feature
+tables are stored in ``feature_dtype`` (float32 or bfloat16); graph,
+sigma, spectral and layout math stays float32.
 """
 
 from __future__ import annotations
@@ -29,6 +31,11 @@ from ..utils.prof import PhaseTimer
 from .curve import get_ab_coeffs as _get_ab_coeffs
 from .encoder import ModalityEncoder
 from .layout import AdamState, adam_state, fit_task, query_task, train_layout
+
+_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Rows per host-to-device chunk of a bf16 table (a 128 MB f32 transient
+# at D=4096).
+_UPLOAD_ROWS = 8192
 
 
 def _npz_path(path: str | None) -> str | None:
@@ -124,9 +131,17 @@ class MultimodalUMAP:
         spectral_method: str = "auto",
         knn_engine: str | None = None,
         device: torch.device | str | None = None,
+        feature_dtype: str = "float32",
     ):
         if num_encoders < 1:
             raise ValueError(f"num_encoders must be >= 1, got {num_encoders}")
+        # "bfloat16" halves the largest tensors on the card; the kNN then
+        # ranks them in the kernel's bf16 mode as they are and re-scores
+        # exactly w.r.t. the stored values.
+        if feature_dtype not in _STORAGE:
+            raise ValueError(f"feature_dtype must be float32 or bfloat16, "
+                             f"got {feature_dtype!r}")
+        self.feature_dtype = feature_dtype
         self.device = resolve_device(device)
         self.k_neighbors = k_neighbors
         self.out_dim = out_dim
@@ -154,6 +169,22 @@ class MultimodalUMAP:
         return torch.as_tensor(np.asarray(x), dtype=torch.float32,
                                device=self.device)
 
+    def _as_table(self, x) -> torch.Tensor:
+        """A training feature table on the model's device, cast straight
+        to ``feature_dtype``. A bf16 table coming from another device is
+        filled in row chunks, so the model's device never holds it in
+        f32 (a cross-device ``.to(device, dtype)`` would copy it whole
+        first and then cast)."""
+        dtype = _STORAGE[self.feature_dtype]
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x))
+        if dtype == torch.float32 or x.device == self.device:
+            return x.to(device=self.device, dtype=dtype)
+        out = torch.empty(x.shape, dtype=dtype, device=self.device)
+        for s in range(0, x.shape[0], _UPLOAD_ROWS):
+            out[s:s + _UPLOAD_ROWS] = x[s:s + _UPLOAD_ROWS].to(self.device)
+        return out
+
     def fit(self, inputs, epochs: int, num_rep: int = 8, lr: float = 0.2,
             alpha: float = 0.5, batch_size: int = 512,
             progress_path: str | None = None, resume: bool = False,
@@ -171,7 +202,7 @@ class MultimodalUMAP:
         (fingerprint), k, out_dim and spectral method loads them instead
         of rebuilding.
         """
-        data = [self._as_f32(x) for x in inputs]
+        data = [self._as_table(x) for x in inputs]
         if len(data) != self.num_encoders:
             raise ValueError(
                 f"expected {self.num_encoders} modalities, got {len(data)}")
@@ -381,6 +412,10 @@ class MultimodalUMAP:
                                  state["rhos"]):
             enc.sigmas, enc.rhos = sig, rho
         model.data = state["data"]
+        # Inferred, not stored: the archive keeps each table's dtype.
+        model.feature_dtype = (
+            "bfloat16" if any(d.dtype == torch.bfloat16 for d in model.data)
+            else "float32")
         model.graphs = state["graphs"]
         model.embeds = state["embeds"]
         return model

@@ -113,10 +113,12 @@ def symmetrize_dense(nbrs: torch.Tensor, weights: torch.Tensor) -> DenseSymGraph
 def embed_query(nbrs: torch.Tensor, weights: torch.Tensor,
                 ref: torch.Tensor) -> torch.Tensor:
     """Affinity-weighted average of reference rows: (Q, k) affinities
-    row-normalized (sums clamped >= 1e-6) times ``ref[nbrs]``."""
+    row-normalized (sums clamped >= 1e-6) times ``ref[nbrs]``. A
+    bf16-stored ``ref`` is gathered as it is and up-cast per gathered
+    row (the JAX package's type promotion); the result is f32."""
     row_sums = weights.sum(1).clamp_min(1e-6)
     norm_w = weights / row_sums[:, None]
-    return torch.einsum("qk,qkd->qd", norm_w, ref[nbrs.long()])
+    return torch.einsum("qk,qkd->qd", norm_w, ref[nbrs.long()].float())
 
 
 def to_dense(graph: EdgeGraph) -> torch.Tensor:

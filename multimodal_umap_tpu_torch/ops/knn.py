@@ -16,11 +16,16 @@ else the device default):
 * ``stream`` -- the same kernel path with the streamed engine's
   candidate width (:func:`_candidate_width`);
 * ``pallas`` -- the tile kernel in f32 mode (full f32 products);
+* ``approx`` -- the tile kernel in f32 mode too. The JAX engine is a
+  ``precision="highest"`` panel with ``lax.approx_max_k`` (the TPU's
+  PartialReduce), which has no counterpart on the card; its selection
+  is exact here (on the CPU ``approx_max_k`` returns ``top_k``'s result),
+  so the 0.99 recall target is met;
 * ``xla`` (CPU default) -- exact f32 row-blocked panels with
-  ``torch.matmul`` + ``torch.topk``; explicit only on CUDA;
-* ``approx`` -- not ported (the TPU's approximate top-k hardware op).
+  ``torch.matmul`` + ``torch.topk``; explicit only on CUDA.
 
-On the CPU the kernel engines run the kernel's plain version.
+bf16-stored inputs take the kernel's bf16 mode under every engine. On
+the CPU the kernel engines run the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -54,12 +59,16 @@ def _exact_rescore_sq(q: torch.Tensor, references: torch.Tensor,
                       ids: torch.Tensor, chunk: int) -> torch.Tensor:
     """Exact f32 squared distances of each query to its candidate rows,
     in the direct ``sum((q - r)^2)`` form (no cancellation). The
-    (rows, cand, D) gather is the transient, bounded by ``chunk`` rows."""
+    (rows, cand, D) gather is the transient, bounded by ``chunk`` rows;
+    bf16-stored rows are up-cast per chunk, so "exact" is w.r.t. the
+    stored values. The gathered chunk is reused in place for the
+    difference and its square ((r - q)^2 == (q - r)^2 exactly)."""
     out = []
     for s in range(0, q.shape[0], chunk):
-        rows = references[ids[s:s + chunk].long()].float()  # (c, cand, D)
-        diff = q[s:s + chunk].float()[:, None, :] - rows
-        out.append((diff * diff).sum(2))
+        # (c, cand, D): the gather is a copy, so it is free to overwrite.
+        diff = references[ids[s:s + chunk].long()].float()
+        diff.sub_(q[s:s + chunk].float()[:, None, :])
+        out.append(diff.square_().sum(2))
     return torch.cat(out)
 
 
@@ -92,21 +101,22 @@ def knn(
     ``exclude_self`` masks query i vs reference i (fit mode, where the
     queries are the references). Returns ((Q, k) ascending Euclidean
     distances, (Q, k) int32 reference ids).
+
+    If either input is stored bfloat16 the call takes the kernel's bf16
+    mode whatever the engine (the JAX package's bf16-stored rule): the
+    tables go to the kernel without an f32 copy and the re-score is exact
+    w.r.t. the stored values.
     """
     engine = resolve_engine(engine, queries.device)
-    if engine == "approx":
-        raise ValueError(
-            "kNN engine 'approx' is not ported to PyTorch yet (it maps to "
-            "the TPU's approximate top-k); use 'bf16', 'stream', 'pallas' "
-            "or 'xla'")
-    if engine in ("bf16", "stream", "pallas"):
+    bf16_stored = torch.bfloat16 in (queries.dtype, references.dtype)
+    if bf16_stored or engine in ("bf16", "stream", "pallas", "approx"):
         cand = None
         if engine == "stream":
             cand = _candidate_width(
                 k, references.shape[0] - (1 if exclude_self else 0))
         return knn_tiled(queries, references, k, exclude_self=exclude_self,
-                         bf16=engine != "pallas", row_block=row_block,
-                         cand=cand)
+                         bf16=bf16_stored or engine in ("bf16", "stream"),
+                         row_block=row_block, cand=cand)
 
     q = queries.float()
     r = references.float()

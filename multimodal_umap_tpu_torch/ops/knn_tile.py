@@ -12,7 +12,8 @@ into the git-ignored ``build/`` directory at first use, binds it with
   every column at most once);
 * :func:`knn_tile` -- the wrapper. A CPU tensor takes the plain version;
   a CUDA tensor launches the kernel or raises (never a fallback). Every
-  launch adds one to ``KNN_TILE_LAUNCHES``;
+  launch adds one to its mode's count, ``KNN_TILE_BF16_LAUNCHES`` or
+  ``KNN_TILE_F32_LAUNCHES``;
 * :func:`row_norms_sq` / :func:`row_norms_sq_plain` -- the bf16 mode's
   norm pre-pass (a second kernel in the same source, counted in
   ``ROW_NORM_LAUNCHES``) and its plain version;
@@ -26,7 +27,9 @@ into the git-ignored ``build/`` directory at first use, binds it with
 bf16 mode ranks with single-pass bf16 products (f32 accumulation) and
 norms taken from the bf16-rounded values, so the panel is the exact
 squared distance of the rounded vectors; the re-score makes returned
-distances exact f32. f32 mode keeps full f32 products (never TF32).
+distances exact f32 (exact w.r.t. the stored values for bf16-stored
+tables, which reach the kernel without an f32 copy). f32 mode keeps full
+f32 products (never TF32).
 """
 
 from __future__ import annotations
@@ -49,9 +52,11 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = (_CSRC / "knn_tile.cu",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
-# Launches of the CUDA tile kernel in this process (plain-version calls on
-# CPU tensors do not count, nor does the norm pre-pass).
-KNN_TILE_LAUNCHES = 0
+# Launches of the CUDA tile kernel in this process, one count per mode
+# (``knn_tile_bf16_kernel``, ``knn_tile_f32_kernel``); plain-version
+# calls on CPU tensors do not count, nor does the norm pre-pass.
+KNN_TILE_BF16_LAUNCHES = 0
+KNN_TILE_F32_LAUNCHES = 0
 # Launches of the bf16 row-norm pre-pass kernel.
 ROW_NORM_LAUNCHES = 0
 # Seconds the last nvcc build took (None: nothing built in this process),
@@ -266,7 +271,7 @@ def knn_tile(
     for CPU tensors, the CUDA kernel for CUDA tensors. In bf16 mode the
     kernel reads the rows' squared norms from :func:`row_norms_sq`;
     ``q_sq`` / ``r_sq`` pass ones already computed (f32, one per row)."""
-    global KNN_TILE_LAUNCHES
+    global KNN_TILE_BF16_LAUNCHES, KNN_TILE_F32_LAUNCHES
     if q.dim() != 2 or r.dim() != 2 or q.shape[1] != r.shape[1]:
         raise ValueError(f"bad shapes {tuple(q.shape)} / {tuple(r.shape)}")
     if q.dtype != r.dtype or q.dtype not in (torch.bfloat16, torch.float32):
@@ -317,8 +322,17 @@ def knn_tile(
         )
     if err != 0:
         raise RuntimeError(f"knn_tile kernel launch failed: CUDA error {err}")
-    KNN_TILE_LAUNCHES += 1
+    if bf16:
+        KNN_TILE_BF16_LAUNCHES += 1
+    else:
+        KNN_TILE_F32_LAUNCHES += 1
     return d_out, i_out
+
+
+def rescore_chunk(cand: int, d: int) -> int:
+    """Query rows per chunk of the exact re-score: at most 512, and at most
+    2**26 gathered elements (256 MB in f32) per chunk at any D."""
+    return max(1, min(512, (1 << 26) // max(1, cand * d)))
 
 
 def knn_tiled(
@@ -337,12 +351,19 @@ def knn_tiled(
     bf16: the per-tile width (:func:`bf16_tile_k`) absorbs in-tile bf16
     misranking, the merged global top-``cand`` (default max(4k, 64))
     absorbs cross-tile misranking; both are re-scored away in exact f32.
+
+    Inputs go to the kernel in its mode's dtype without an f32 copy: a
+    bf16-stored table as it is, an f32 one cast (bf16 mode) for ranking
+    only. The re-score reads the inputs as given, up-casting the gathered
+    rows per chunk, so distances are exact w.r.t. the stored values (an
+    f32 query against a bf16 table keeps its f32 values). One table
+    passed as both ``queries`` and ``references`` (fit) is cast, padded
+    and normed once.
     """
     from .knn import _exact_rescore_sq
 
-    q32 = queries.float()
-    r32 = references.float()
-    num_q, num_r = q32.shape[0], r32.shape[0]
+    same = queries is references
+    num_q, num_r = queries.shape[0], references.shape[0]
     if k > num_r - (1 if exclude_self else 0):
         raise ValueError(f"k={k} exceeds available references ({num_r})")
     if bf16:
@@ -353,13 +374,15 @@ def knn_tiled(
     if tile_k > TILE_C:
         raise ValueError(f"k={k} exceeds the kernel's tile width {TILE_C}")
     dtype = torch.bfloat16 if bf16 else torch.float32
-    qw = q32.to(dtype).contiguous()
-    rw = r32.to(dtype).contiguous()
+    rw = references.to(dtype).contiguous()  # no copy when already dtype
+    qw = rw if same else queries.to(dtype).contiguous()
     q_sq = r_sq = None
     if bf16 and qw.is_cuda:  # the norm pre-pass once per call, not per block
         d_pad = launch_geometry(num_q, num_r, qw.shape[1], True).d_pad
-        qw, rw = _pad_d(qw, d_pad), _pad_d(rw, d_pad)
-        q_sq, r_sq = row_norms_sq(qw), row_norms_sq(rw)
+        rw = _pad_d(rw, d_pad)
+        qw = rw if same else _pad_d(qw, d_pad)
+        r_sq = row_norms_sq(rw)
+        q_sq = r_sq if same else row_norms_sq(qw)
 
     d_parts, i_parts = [], []
     for s in range(0, num_q, row_block):
@@ -379,8 +402,10 @@ def knn_tiled(
             _, pos = torch.topk(cand_d, min(cand, width), dim=1,
                                 largest=False)
             ids_c = cand_i.gather(1, pos)
-            d2 = _exact_rescore_sq(q32[s:e], r32, ids_c.clamp(0, num_r - 1),
-                                   chunk=min(512, nq))
+            del cand_d, cand_i, d_c, i_c  # freed before the re-score's chunks
+            d2 = _exact_rescore_sq(
+                queries[s:e], references, ids_c.clamp(0, num_r - 1),
+                chunk=min(rescore_chunk(ids_c.shape[1], queries.shape[1]), nq))
             # Exhausted tiles emit +inf entries whose ids can point at
             # padded or self columns; the re-score recomputes finite
             # distances from ids, so the masks are re-applied here.

@@ -8,14 +8,16 @@ materialized (except on the small-n dense path): its matvec is an
 ``index_add_`` over the fixed edge list.
 
 Methods: ``chebyshev`` (Chebyshev-filtered subspace iteration + one
-Rayleigh-Ritz per round, stopped on the worst residual), ``dense``
-(``eigh`` of the materialized Laplacian, small n only) and ``auto``
-(dense below the small-n guardrail, else chebyshev). ``lobpcg`` is not
-ported yet.
+Rayleigh-Ritz per round, stopped on the worst residual), ``lobpcg``
+(LOBPCG on the shifted operator c*I - L, a port of
+``jax.experimental.sparse.linalg.lobpcg_standard``), ``dense`` (``eigh``
+of the materialized Laplacian, small n only) and ``auto`` (dense below
+the small-n guardrail, else chebyshev).
 
-The filter's start block is seeded (``torch.Generator`` seed 42); the
-JAX package's PRNGKey(42) block cannot be reproduced, so results agree
-as subspaces (principal angles), not element-wise.
+The start blocks are seeded (``torch.Generator`` seed 42); the JAX
+package's PRNGKey(42) blocks cannot be reproduced, so results agree as
+subspaces (principal angles), not element-wise. ``lobpcg`` takes its
+start block as an input (``x0``), so a test can hand it JAX's.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from .graph import EdgeGraph, to_dense
 
 _EPS_SHIFT = 1e-6
+_LOBPCG_SHIFT = 2.0 + 2.0 * _EPS_SHIFT
 _START_SEED = 42
 
 
@@ -37,11 +40,12 @@ def _degrees(graph: EdgeGraph) -> torch.Tensor:
 def _adjacency_apply(graph: EdgeGraph, w: torch.Tensor,
                      y: torch.Tensor) -> torch.Tensor:
     """A @ y by index_add_ over the edge list (``w`` zeroed where
-    invalid)."""
+    invalid). The (E, B) gather is scaled in place: one edge-sized
+    transient, not two."""
     out = torch.zeros((graph.num_rows, y.shape[1]), dtype=y.dtype,
                       device=y.device)
     return out.index_add_(0, graph.rows.long(),
-                          y[graph.cols.long()] * w[:, None])
+                          y[graph.cols.long()].mul_(w[:, None]))
 
 
 class _Laplacian:
@@ -121,6 +125,140 @@ def _spectral_chebyshev(graph: EdgeGraph, out_dim: int, degree: int = 24,
     return x[:, 1 : out_dim + 1]
 
 
+def _col_norms(x: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(x, dim=0, keepdim=True)
+
+
+def _eigh_descending(a: torch.Tensor):
+    w, v = torch.linalg.eigh(a)
+    return w.flip(0), v.flip(1)
+
+
+def _svqb(x: torch.Tensor) -> torch.Tensor:
+    """Truncated orthonormal basis of ``x`` by SVQB (columns of a
+    numerically rank-deficient ``x`` come back zero)."""
+    norms = _col_norms(x)
+    x = x / torch.where(norms == 0, 1.0, norms)
+    inner = x.T @ x
+    w, v = _eigh_descending(inner)
+    tau = torch.finfo(x.dtype).eps * w[0]
+    sqrted = torch.where(tau > 0, torch.maximum(w, tau), 1.0) ** -0.5
+    ortho = x @ (v * sqrted[None, :])
+    keep = ((w > tau) & (torch.diagonal(inner) > 0.0))[None, :]
+    ortho = ortho * keep
+    norms = _col_norms(ortho)
+    keep = keep & (norms > 0.0)
+    return ortho / torch.where(keep, norms, 1.0)
+
+
+def _orthonormalize(x: torch.Tensor) -> torch.Tensor:
+    return _svqb(_svqb(x))
+
+
+def _project_out(basis: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The part of ``u`` orthogonal to the orthonormal (zero columns
+    allowed) ``basis``, orthonormalized; suspicious columns zeroed."""
+    for _ in range(2):
+        u = _orthonormalize(u - basis @ (basis.T @ u))
+    for _ in range(2):
+        u = u - basis @ (basis.T @ u)
+    return u * (_col_norms(u) >= 0.99)
+
+
+def _extend_basis(x: torch.Tensor, m: int) -> torch.Tensor:
+    """``m`` columns orthonormal to the orthonormal (n, k) ``x``, from a
+    block Householder reflector (deterministic)."""
+    n, k = x.shape
+    upper, lower = x[:k], x[k:]
+    u, s, vt = torch.linalg.svd(upper)
+    y = torch.cat([upper + u @ vt, lower])
+    other = torch.cat([torch.eye(m, dtype=x.dtype, device=x.device),
+                       torch.zeros((n - k - m, m), dtype=x.dtype,
+                                   device=x.device)])
+    w = y @ (vt.T * ((2.0 * (1.0 + s)) ** -0.5)[None, :])
+    h = -2.0 * (w @ (w[k:].T @ other))
+    h[k:] += other
+    return h
+
+
+def lobpcg_standard(matvec, x: torch.Tensor, m: int = 100,
+                    tol: float | None = None):
+    """The ``k`` largest eigenpairs of the symmetric operator ``matvec``
+    ((n, B) -> (n, B)) by LOBPCG, started from the (n, k) block ``x``.
+
+    A port of ``jax.experimental.sparse.linalg.lobpcg_standard``: an
+    orthonormal X, P, R basis kept throughout (SVQB), P from the
+    Rayleigh-Ritz coefficients, at most ``m`` iterations, stopping early
+    once every residual ``|A v - theta v|`` is below ``tol * 10 * n *
+    (theta + |A v|)`` (``tol`` default: the dtype's epsilon). The
+    convergence count is read on the host once per iteration.
+
+    Returns (theta (k,) descending, vectors (n, k), iterations run).
+    """
+    n, k = x.shape
+    if k == 0 or 5 * k >= n:
+        raise ValueError(f"expected 0 < search dim * 5 < matrix dim, got "
+                         f"{k * 5}, {n}")
+    if tol is None:
+        tol = torch.finfo(x.dtype).eps
+    x = _orthonormalize(x)
+    p = _extend_basis(x, k)
+    ax = matvec(x)
+    theta = (x * ax).sum(0, keepdim=True)
+    r = ax - theta * x
+    it = 0
+    while it < m:
+        r = _project_out(torch.cat([x, p], 1), r)
+        xpr = torch.cat([x, p, r], 1)
+        theta, q = _eigh_descending(xpr.T @ matvec(xpr))
+        b = q[:, :k]
+        b = b / _col_norms(b)
+        x = xpr @ b
+        x = x / _col_norms(x)
+        q_p, _ = torch.linalg.qr(q[:k, k:].T)
+        p = xpr @ (q[:, k:] @ q_p)
+        norm_p = _col_norms(p)
+        p = p / torch.where(norm_p == 0, 1.0, norm_p)
+        ax = matvec(x)
+        r = ax - theta[None, :k] * x
+        reltol = (torch.linalg.vector_norm(ax, dim=0) + theta[:k]) * n * 10
+        converged = int((torch.linalg.vector_norm(r, dim=0)
+                         < tol * reltol).sum())
+        theta = theta[None, :k]
+        it += 1
+        if converged >= k:
+            break
+    return theta[0], x, it
+
+
+def lobpcg_problem(graph: EdgeGraph, out_dim: int,
+                   x0: torch.Tensor | None = None):
+    """The operator and start block of :func:`_spectral_lobpcg`: the
+    matvec of c*I - L (c = 2 + 2 eps, so L's smallest eigenpairs are the
+    largest) and ``x0`` (n, out_dim + 1) -- default a seeded normal
+    block -- with column 0 set to the normalized trivial eigenvector
+    d^{1/2}."""
+    lap = _Laplacian(graph)
+    n, dev = graph.num_rows, lap.w.device
+    if x0 is None:
+        gen = torch.Generator(device=dev).manual_seed(_START_SEED)
+        x0 = torch.randn(n, out_dim + 1, generator=gen, device=dev)
+    else:
+        x0 = x0.to(device=dev, dtype=torch.float32).clone()
+    trivial = 1.0 / lap.d_inv_sqrt
+    x0[:, 0] = trivial / torch.linalg.norm(trivial)
+    return (lambda x: _LOBPCG_SHIFT * x - lap(x)), x0
+
+
+def _spectral_lobpcg(graph: EdgeGraph, out_dim: int, max_iters: int = 64,
+                     x0: torch.Tensor | None = None) -> torch.Tensor:
+    """LOBPCG on :func:`lobpcg_problem`, at most ``max_iters``
+    iterations; the trivial column is dropped."""
+    matvec, x0 = lobpcg_problem(graph, out_dim, x0)
+    _, vecs, _ = lobpcg_standard(matvec, x0, m=max_iters)
+    return vecs[:, 1:]
+
+
 def _spectral_dense(graph: EdgeGraph, out_dim: int) -> torch.Tensor:
     adj = to_dense(graph)
     d_inv_sqrt = adj.sum(1).clamp_min(1e-6) ** -0.5
@@ -137,9 +275,9 @@ def spectral_embedding(graph: EdgeGraph, out_dim: int,
     """(N, out_dim) f32 smallest non-trivial Laplacian eigenvectors of
     the symmetric fuzzy graph.
 
-    ``method``: "dense", "chebyshev", or "auto" (dense below the
-    small-n guardrail, where the filter block would not fit, else
-    chebyshev)."""
+    ``method``: "dense", "chebyshev", "lobpcg" (at most 64 iterations;
+    needs 5 * (out_dim + 1) < N), or "auto" (dense below the small-n
+    guardrail, where the filter block would not fit, else chebyshev)."""
     small_n = graph.num_rows < 4 * (out_dim + 1) + 4
     if method == "auto" or (method == "chebyshev" and small_n):
         method = "dense" if small_n else "chebyshev"
@@ -148,6 +286,5 @@ def spectral_embedding(graph: EdgeGraph, out_dim: int,
     if method == "chebyshev":
         return _spectral_chebyshev(graph, out_dim)
     if method == "lobpcg":
-        raise ValueError("spectral method 'lobpcg' is not ported to "
-                         "PyTorch yet; use 'auto', 'chebyshev' or 'dense'")
+        return _spectral_lobpcg(graph, out_dim)
     raise ValueError(f"unknown spectral method: {method}")

@@ -6,8 +6,9 @@ schema, so either package reads what the other writes: a ``meta`` JSON
 shapes, ``bf16_keys``) plus, per modality i, ``sigmas_i``, ``rhos_i``,
 ``data_i``, ``embeds_i`` and ``graph_i_{rows,cols,weights,valid}``. The
 training data is stored, as in the reference, because transform and
-invert query it. Archives whose ``bf16_keys`` is not empty (bf16-stored
-feature tables) are not supported by this port yet and raise.
+invert query it. bf16-stored tables are written as their uint16 bit
+patterns and listed in ``bf16_keys``, and restored as bfloat16 on load
+(the JAX package's encoding, since npz has no bfloat16).
 
 Also the fit graph-stage cache (``save_graph_cache`` /
 ``load_graph_cache``) and the feature fingerprint that keys it. Every
@@ -31,9 +32,29 @@ _SCALARS = ("a", "b", "k_neighbors", "out_dim", "min_dist", "num_encoders")
 
 
 def _np(x) -> np.ndarray:
+    """A host numpy copy; a bfloat16 tensor comes back as its uint16 bit
+    patterns (numpy has no bfloat16)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).cpu().numpy().view(np.uint16)
+        return x.cpu().numpy()
     return np.asarray(x)
+
+
+def _is_bf16(x) -> bool:
+    """A bfloat16 tensor, or a numpy array of the ``ml_dtypes`` bfloat16
+    type (what ``np.asarray`` of a JAX bf16 array gives)."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype == torch.bfloat16
+    return getattr(getattr(x, "dtype", None), "name", "") == "bfloat16"
+
+
+def _bf16_from_bits(bits, device: torch.device) -> torch.Tensor:
+    """A bfloat16 tensor on ``device`` from uint16 bit patterns (or from an
+    ``ml_dtypes`` bfloat16 array, read as its bits)."""
+    bits = np.require(bits, requirements=["C", "W"]).view(np.int16)
+    return torch.from_numpy(bits).view(torch.bfloat16).to(device)
 
 
 def write_npz(path: str, arrays: dict) -> None:
@@ -66,35 +87,37 @@ def save_state(path: str, state: dict) -> None:
         "spectral_method": str(state.get("spectral_method", "auto")),
         "knn_engine": str(state.get("knn_engine") or ""),
         "graph_shapes": [[g.num_rows, g.num_cols] for g in state["graphs"]],
-        "bf16_keys": [],
     }
-    arrays = {"meta": json.dumps(meta)}
+    arrays = {}
     for i in range(meta["num_encoders"]):
         for key in ("sigmas", "rhos", "data", "embeds"):
             arrays[f"{key}_{i}"] = state[key][i]
         for f in ("rows", "cols", "weights", "valid"):
             arrays[f"graph_{i}_{f}"] = getattr(state["graphs"][i], f)
-    write_npz(path, arrays)
+    meta["bf16_keys"] = [k for k, v in arrays.items() if _is_bf16(v)]
+    write_npz(path, {"meta": json.dumps(meta), **arrays})
 
 
 def state_from_arrays(arrays, device: torch.device) -> dict:
     """The state dict of :func:`save_state` from its flat arrays (an
     opened archive, or any mapping with the archive's key names; scalars
     come from its ``meta`` JSON or from keys of their own), with every
-    array a tensor on ``device``."""
+    array a tensor on ``device``. Feature tables keep their storage
+    dtype: the keys in ``meta["bf16_keys"]`` (uint16 bit patterns) and
+    bfloat16 arrays come back as bfloat16, everything else as float32."""
     scalars = {k: arrays[k] for k in _SCALARS if k in arrays}
     meta = {}
     if "meta" in arrays:
         meta = json.loads(str(arrays["meta"]))
-        if meta.get("bf16_keys"):
-            raise ValueError("bf16-stored checkpoints are not supported "
-                             "by this port yet")
         scalars.update({k: meta[k] for k in _SCALARS if k in meta})
+    bf16_keys = set(meta.get("bf16_keys", ()))
     n = int(scalars["num_encoders"])
 
     def t(key, dtype):
-        return torch.as_tensor(np.array(arrays[key]), dtype=dtype,
-                               device=device)
+        a = arrays[key]
+        if key in bf16_keys or _is_bf16(a):
+            return _bf16_from_bits(a, device)
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
     state = {
         "k_neighbors": int(scalars["k_neighbors"]),
@@ -132,7 +155,8 @@ def load_state(path: str, device: torch.device) -> dict:
 def feature_fingerprint(feats) -> int:
     """Content guard for the graph cache: CRC over a strided sample of up
     to 64 rows (always the first and last) plus the table shape. The
-    same bytes give the JAX package's fingerprint."""
+    same bytes give the JAX package's fingerprint (a bf16 table's bytes
+    are its 2-byte bit patterns in both)."""
     n = int(feats.shape[0])
     idx = sorted({0, n - 1, *range(0, n, -(-n // 62))})
     rows = np.ascontiguousarray(_np(feats[idx]))  # one gather + readback

@@ -4,7 +4,10 @@ Each pipeline phase (graph build, layout, transform) runs under a
 ``torch.profiler.record_function`` range so profiler traces are
 attributable, and its wall time is collected for a phase report. On a
 CUDA device the phase end synchronizes the device, so a phase's time
-covers its kernels and not only their enqueue.
+covers its kernels and not only their enqueue, and records the device's
+peak allocated bytes so far (``torch.cuda.max_memory_allocated``: since
+the process started or the caller last reset the peak) in
+``peak_bytes``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ class PhaseTimer:
     def __init__(self, device: torch.device | str = "cpu") -> None:
         self.device = torch.device(device)
         self.phases: dict[str, float] = {}
+        self.peak_bytes: dict[str, int] = {}
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -31,6 +35,8 @@ class PhaseTimer:
             finally:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
+                    self.peak_bytes[name] = torch.cuda.max_memory_allocated(
+                        self.device)
                 self.phases[name] = (
                     self.phases.get(name, 0.0) + time.perf_counter() - t0
                 )

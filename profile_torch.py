@@ -1,10 +1,12 @@
 """Profile the PyTorch port's layout epoch on one CUDA GPU.
 
     python3 profile_torch.py [--mode fit|invert] [--epochs 20] [--out DIR]
+                             [--n_train 31744]
 
 ``fit`` builds the fit graphs of the chip-smoke main path (31,744
-synthetic pairs at 768 / 4096 dims, k=15, out_dim=64) and profiles the
-fit layout. ``invert`` fits that model (60 epochs: the invert epoch's
+synthetic pairs at 768 / 4096 dims, k=15, out_dim=64; ``--n_train
+131072`` for its CLI path) and profiles the fit layout. ``invert`` fits
+that model (60 epochs: the invert epoch's
 cost depends on shapes, not on how well the layout converged), embeds
 1,024 held-out texts and profiles the invert layout that reconstructs
 them as 4,096-d images (the ``embed_and_recon`` main path). Either mode
@@ -32,7 +34,9 @@ def main() -> None:
     ap.add_argument("--mode", choices=("fit", "invert"), default="fit")
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--out", default="chiprun_out/profile")
+    ap.add_argument("--n_train", type=int, default=31_744)
     args = ap.parse_args()
+    n = args.n_train
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs a CUDA GPU")
     from multimodal_umap_tpu_torch import Config, MultimodalUMAP
@@ -45,9 +49,9 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(json.dumps({"device": smi}), flush=True)
     cfg = Config()
-    data = clustered_modalities(31_744 + 1_024, dims=(768, 4096), seed=0,
+    data = clustered_modalities(n + 1_024, dims=(768, 4096), seed=0,
                                 centers_seed=1)
-    train = [torch.from_numpy(x[:31_744]).cuda() for x in data.values()]
+    train = [torch.from_numpy(x[:n]).cuda() for x in data.values()]
     model = MultimodalUMAP(cfg.k_neighbors, cfg.out_dim, cfg.min_dist, 2,
                            device="cuda")
     if args.mode == "fit":
@@ -58,7 +62,7 @@ def main() -> None:
     else:
         model.fit(train, epochs=60, num_rep=cfg.num_rep, lr=cfg.lr,
                   alpha=cfg.alpha, batch_size=cfg.batch_size)
-        z = model.transform([data["texts"][31_744:]], cfg.test_epochs, [0],
+        z = model.transform([data["texts"][n:]], cfg.test_epochs, [0],
                             num_rep=cfg.num_rep, lr=cfg.lr,
                             batch_size=cfg.batch_size)[0]
         enc = model.encoders[1]
@@ -99,7 +103,8 @@ def main() -> None:
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     print(json.dumps({
-        "mode": args.mode, "epochs": args.epochs, "epoch_ms": epoch_ms,
+        "mode": args.mode, "n_train": n, "epochs": args.epochs,
+        "epoch_ms": epoch_ms,
         "peak_mem_gib": peak_gib,
         "profiled_wall_ms": wall_us / 1e3,
         "device_busy_share": device_us / wall_us,

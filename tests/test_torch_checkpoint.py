@@ -119,7 +119,10 @@ def test_jax_checkpoint_loads_in_port(jax_fitted, tmp_path):
                                    rtol=5e-4, atol=1e-6)
 
 
-def test_bf16_checkpoint_raises(jax_fitted, tmp_path):
+def test_bf16_checkpoint_loads(jax_fitted, tmp_path):
+    """An archive whose table is stored as bf16 bits (``bf16_keys``, the
+    JAX package's encoding) loads as a bfloat16 table, bit for bit, and
+    the model infers ``feature_dtype``; saved again it keeps the key."""
     jmodel, _, _ = jax_fitted
     path = str(tmp_path / "state.npz")
     jmodel.save_state_dict(path)
@@ -128,9 +131,21 @@ def test_bf16_checkpoint_raises(jax_fitted, tmp_path):
     meta = json.loads(str(arrays["meta"]))
     meta["bf16_keys"] = ["data_1"]
     arrays["meta"] = np.asarray(json.dumps(meta))
+    bits = (np.asarray(jmodel.data[1], dtype=jnp.bfloat16)
+            .view(np.uint16))
+    arrays["data_1"] = bits
     np.savez(path, **arrays)
-    with pytest.raises(ValueError, match="bf16"):
-        MultimodalUMAP.load_state_dict(path, device="cpu")
+    port = MultimodalUMAP.load_state_dict(path, device="cpu")
+    assert port.feature_dtype == "bfloat16"
+    assert port.data[1].dtype == torch.bfloat16
+    assert port.data[0].dtype == torch.float32
+    np.testing.assert_array_equal(
+        port.data[1].view(torch.int16).numpy().view(np.uint16), bits)
+    again = str(tmp_path / "again.npz")
+    port.save_state_dict(again)
+    with np.load(again) as z:
+        assert json.loads(str(z["meta"]))["bf16_keys"] == ["data_1"]
+        np.testing.assert_array_equal(z["data_1"], bits)
 
 
 def test_graph_cache_roundtrip_matches_fresh(blobs, tmp_path):

@@ -58,10 +58,11 @@ def test_kernel_matches_plain_on_cuda(bf16, case):
     rtol = 1e-4 if bf16 else 1e-5
     q, r, tk, ex, off = case_inputs(case, gen, "cuda", dt)
     tk = KT.TILE_C if tk is None else tk
-    before = KT.KNN_TILE_LAUNCHES
+    counter = "KNN_TILE_BF16_LAUNCHES" if bf16 else "KNN_TILE_F32_LAUNCHES"
+    before = getattr(KT, counter)
     d_k, i_k = KT.knn_tile(q, r, tk, exclude_self=ex, row_offset=off)
     torch.cuda.synchronize()
-    assert KT.KNN_TILE_LAUNCHES == before + 1
+    assert getattr(KT, counter) == before + 1
     d_p, i_p = KT.knn_tile_plain(q, r, tk, exclude_self=ex, row_offset=off)
     scale = float((q.float() ** 2).sum(1).max()
                   + (r.float() ** 2).sum(1).max())
@@ -129,6 +130,58 @@ def test_kernel_engines_match_exact_engine_on_cuda():
             assert i_k.dtype == torch.int32
             _assert_tie_aware(d_k ** 2, i_k, d_x ** 2, i_x,
                               1e-5 * (d_x ** 2 + scale))
+
+
+@pytest.mark.cuda
+def test_bf16_stored_knn_tiled_allocates_no_f32_table_copy():
+    """A bf16-stored 262,144 x 2,048 table (1.07 GB; 2.15 GB in f32)
+    through ``knn_tiled``'s bf16 mode: the call's peak allocation above
+    what was live before stays below one f32 copy of the table (its own
+    transients -- 1,024-row blocks of candidates, their merge copies and
+    a re-score chunk -- are under 1 GB), and the result equals the
+    f32-table call's up to the stored rounding (ids tie-aware)."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    table = (torch.randn(262_144, 2_048, generator=gen, device="cuda")
+             * 2.0).bfloat16()
+    queries = table[:2_048]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = KT.KNN_TILE_BF16_LAUNCHES
+    d_b, i_b = KT.knn_tiled(queries, table, 15, exclude_self=True,
+                            bf16=True, row_block=1_024)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert KT.KNN_TILE_BF16_LAUNCHES == before + 2
+    f32_copy = table.numel() * 4
+    assert extra < f32_copy, (extra, f32_copy)
+    d_x, i_x = knn(queries.float(), table.float(), 15, exclude_self=True,
+                   engine="xla")
+    scale = float(2 * (table.float() ** 2).sum(1).max())
+    _assert_tie_aware(d_b ** 2, i_b, d_x ** 2, i_x,
+                      1e-5 * (d_x ** 2 + scale))
+
+
+@pytest.mark.cuda
+def test_approx_engine_matches_xla_on_cuda():
+    """``approx`` (the kernel's f32 mode, exact selection) against the
+    exact f32 engine on the card, and counted as f32-mode launches."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(3_000, 96, generator=gen, device="cuda") * 3.0
+    q = torch.randn(500, 96, generator=gen, device="cuda") * 3.0
+    for queries, ex in ((x, True), (q, False)):
+        before = KT.KNN_TILE_F32_LAUNCHES
+        d_a, i_a = knn(queries, x, 15, exclude_self=ex, engine="approx",
+                       row_block=1_024)
+        torch.cuda.synchronize()
+        assert KT.KNN_TILE_F32_LAUNCHES == before + -(-queries.shape[0]
+                                                      // 1_024)
+        d_x, i_x = knn(queries, x, 15, exclude_self=ex, engine="xla")
+        scale = float((queries ** 2).sum(1).max() + (x ** 2).sum(1).max())
+        _assert_tie_aware(d_a ** 2, i_a, d_x ** 2, i_x,
+                          1e-5 * (d_x ** 2 + scale))
 
 
 @pytest.mark.cuda

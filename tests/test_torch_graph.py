@@ -4,7 +4,8 @@ against the JAX package and the reference goldens.
 Tolerances: rtol 1e-5 against JAX on the same (dists, nbrs) -- the same
 f32 formulas, summed in another order; the goldens' own bands of
 tests/test_parity_goldens.py; spectral subspaces by principal angles
-(cosines > 0.99), since the start blocks' random draws differ.
+(cosines > 0.99), since the start blocks' random draws differ (LOBPCG
+is also held against JAX's from JAX's own start block).
 """
 
 import os
@@ -152,5 +153,97 @@ def test_chebyshev_matches_jax_and_converges():
     theta = (x * lap(x)).sum(0)
     resid = torch.sqrt(((lap(x) - x * theta) ** 2).sum(0)).max()
     assert float(resid) <= 2e-3
-    with pytest.raises(ValueError, match="not ported"):
-        PS.spectral_embedding(graph, 6, method="lobpcg")
+
+
+def test_lobpcg_matches_jax_on_same_start_block():
+    """The port's LOBPCG from JAX's PRNGKey(42) start block against JAX's
+    ``lobpcg`` method, and its own seeded start against dense eigh
+    (principal-angle cosines > 0.99); ``lobpcg_standard`` itself on the
+    same operator and block stops at JAX's iteration (its convergence
+    test scales with n) with the same Ritz values (atol 1e-4); the 5k < n
+    precondition raises."""
+    import functools
+
+    import jax
+    from jax.experimental.sparse.linalg import lobpcg_standard as j_lobpcg
+
+    from multimodal_umap_tpu.ops.spectral import (
+        _degrees as j_degrees,
+        _laplacian_matvec as j_matvec,
+    )
+
+    dists, nbrs = _knn_graph(n=400, k=10, d=3, seed=4)
+    w = np.asarray(JG.fuzzy_weights(jnp.asarray(dists))[0])
+    graph = PG.symmetrize(t(nbrs), t(w))
+    j_graph = JG.symmetrize(jnp.asarray(nbrs), jnp.asarray(w))
+    theirs = np.asarray(j_spectral(j_graph, 6, method="lobpcg"))
+    x0 = t(jax.random.normal(jax.random.PRNGKey(42), (400, 7)))
+    j_op = jax.jit(functools.partial(j_matvec, j_graph,
+                                     j_degrees(j_graph) ** -0.5))
+    j_theta, _, j_iters = j_lobpcg(j_op, jnp.asarray(x0), m=64)
+    lap = PS._Laplacian(graph)
+    theta, _, iters = PS.lobpcg_standard(
+        lambda y: PS._LOBPCG_SHIFT * y - lap(y), x0.clone(), m=64)
+    assert iters == int(j_iters) < 64
+    np.testing.assert_allclose(theta.numpy(), np.asarray(j_theta), atol=1e-4)
+    ours = PS._spectral_lobpcg(graph, 6, x0=x0).numpy()
+    assert ours.shape == (400, 6) and np.isfinite(ours).all()
+    assert subspace_sv(ours, theirs).min() > 0.99
+    seeded = PS.spectral_embedding(graph, 6, method="lobpcg").numpy()
+    dense = PS.spectral_embedding(graph, 6, method="dense").numpy()
+    assert subspace_sv(seeded, dense).min() > 0.99
+    with pytest.raises(ValueError, match="search dim"):
+        PS.spectral_embedding(graph, 80, method="lobpcg")
+
+
+def _cluster_graph(n, k, n_clusters=32, seed=0):
+    """(nbrs, weights) of a kNN-shaped graph with ``n_clusters``
+    disconnected clusters: each row's ``k`` neighbours are other rows of
+    its own cluster, drawn without a distance computation (the fit graph
+    of clustered data at a row count too large for an exact kNN here)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_clusters, n)
+    order = np.argsort(labels, kind="stable")
+    pos = np.empty(n, np.int64)
+    pos[order] = np.arange(n)
+    counts = np.bincount(labels, minlength=n_clusters)[labels][:, None]
+    starts = np.searchsorted(labels[order], labels)[:, None]
+    off = rng.integers(1, counts, (n, k))
+    nbrs = order[starts + (pos[:, None] - starts + off) % counts]
+    return (nbrs.astype(np.int32),
+            rng.uniform(0.05, 1.0, (n, k)).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,out_dim", [(16_384, 64), (131_072, 16)])
+def test_lobpcg_stops_at_jax_iteration_at_scale(n, out_dim):
+    """JAX's LOBPCG stopping test scales with n (``|r| < eps * 10 * n *
+    (theta + |A v|)``), so at the CLI path's 131,072 rows it stops after
+    one iteration: the port's ``lobpcg_standard`` on the same operator
+    and start block stops at the same iteration, with the same Ritz
+    values (atol 2e-4: f32 rounding of two summation orders, carried
+    through five 195-column Rayleigh-Ritz steps at 16,384 rows)."""
+    import functools
+
+    import jax
+    from jax.experimental.sparse.linalg import lobpcg_standard as j_lobpcg
+
+    from multimodal_umap_tpu.ops.spectral import (
+        _degrees as j_degrees,
+        _laplacian_matvec as j_matvec,
+    )
+
+    nbrs, w = _cluster_graph(n, 15)
+    j_graph = JG.symmetrize(jnp.asarray(nbrs), jnp.asarray(w))
+    x0 = np.array(jax.random.normal(jax.random.PRNGKey(42),
+                                    (n, out_dim + 1)))
+    d_inv_sqrt = j_degrees(j_graph) ** -0.5
+    trivial = 1.0 / d_inv_sqrt
+    j_x0 = jnp.asarray(x0).at[:, 0].set(trivial / jnp.linalg.norm(trivial))
+    j_theta, _, j_iters = j_lobpcg(
+        jax.jit(functools.partial(j_matvec, j_graph, d_inv_sqrt)), j_x0,
+        m=64)
+    matvec, p_x0 = PS.lobpcg_problem(PG.symmetrize(t(nbrs), t(w)), out_dim,
+                                     t(x0))
+    theta, _, iters = PS.lobpcg_standard(matvec, p_x0, m=64)
+    assert iters == int(j_iters)
+    np.testing.assert_allclose(theta.numpy(), np.asarray(j_theta), atol=2e-4)

@@ -68,6 +68,22 @@ def test_knn_matches_jax_exact(case, engine):
     assert np.all(np.diff(d_p.numpy(), axis=1) >= -1e-6)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_approx_matches_jax_approx(case):
+    """Port ``approx`` (the kernel's f32 mode, exact selection) against
+    JAX's ``approx`` engine (``lax.approx_max_k``, which returns
+    ``top_k``'s result on the CPU): ids equal, distances rtol 2e-4."""
+    q, r, k, ex, blk = _inputs(case)
+    d_j, i_j = JK.knn(jnp.asarray(q), jnp.asarray(r), k, exclude_self=ex,
+                      engine="approx", row_block=blk)
+    d_p, i_p = PK.knn(t(q), t(r), k, exclude_self=ex, engine="approx",
+                      row_block=blk)
+    assert i_p.dtype == torch.int32
+    np.testing.assert_array_equal(i_p.numpy(), np.asarray(i_j))
+    np.testing.assert_allclose(d_p.numpy(), np.asarray(d_j), rtol=2e-4,
+                               atol=2e-4)
+
+
 @pytest.mark.parametrize("scale,q_rows,n,d,k,ex", [
     (4.0, 60, 60, 24, 5, True),     # test_pallas_bf16_self_graph_matches_exact
     (1.0, 21, 150, 17, 6, False),   # test_pallas_bf16_query_mode_padded
@@ -166,9 +182,7 @@ def test_engine_resolution_and_errors(monkeypatch):
         PK.resolve_engine(None, "cpu")
     monkeypatch.delenv("MMUMAP_KNN_ENGINE")
     x = torch.zeros(6, 3)
-    with pytest.raises(ValueError, match="not ported"):
-        PK.knn(x, x, 2, engine="approx")
-    for engine in ("xla", "bf16", "pallas"):
+    for engine in ("xla", "bf16", "pallas", "approx"):
         with pytest.raises(ValueError, match="exceeds available"):
             PK.knn(x, x, 6, exclude_self=True, engine=engine)
     for k in (1, 5, 15, 40):
@@ -179,10 +193,10 @@ def test_engine_resolution_and_errors(monkeypatch):
 
 def test_cpu_tensors_take_the_plain_version():
     """The wrapper counts only kernel launches; CPU tensors never launch."""
-    before = KT.KNN_TILE_LAUNCHES
+    before = (KT.KNN_TILE_BF16_LAUNCHES, KT.KNN_TILE_F32_LAUNCHES)
     x = torch.randn(50, 8)
     got = KT.knn_tile(x, x, 5, exclude_self=True)
     want = KT.knn_tile_plain(x, x, 5, exclude_self=True)
-    assert KT.KNN_TILE_LAUNCHES == before
+    assert (KT.KNN_TILE_BF16_LAUNCHES, KT.KNN_TILE_F32_LAUNCHES) == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
