@@ -12,18 +12,21 @@ line:
    flags; fails if float32 matmuls may use TF32;
 2. build -- builds the kernels (one ``nvcc`` of ``csrc/knn_tile.cu``),
    prints the build seconds, each kernel's registers and spill bytes
-   from ``-Xptxas -v`` and the bf16 tile kernel's count of ``HGMMA``
-   (wgmma) and ``UTMALDG`` (TMA load) SASS instructions
-   (``cuobjdump -sass``); fails on a spill or a count of 0;
+   from ``-Xptxas -v`` and, for both tile kernels, the count of ``HGMMA``
+   (wgmma; in the f32 kernel those on TF32), ``UTMALDG`` (TMA load) and
+   ``FFMA`` SASS instructions (``cuobjdump -sass``; the f32 kernel's
+   FFMAs are its row norms and the selection's, not a product loop);
+   fails on a spill or a wgmma / TMA count of 0;
 3. kernel_vs_plain -- each kernel against its plain PyTorch version on
    the card: the tile kernel in f32 and bf16 modes on the edge cases of
    ``KERNEL_CASES`` plus two main-path blocks (rows [8192, 16384) of the
    31,744 x 4,096 image table and the last fit block, rows [24576,
    31744) of the 768-d text table, k=15, exclude_self). Squared
    distances within rtol (|b| + max|q|^2 + max|r|^2), rtol 1e-5 in f32
-   mode (another summation order) and 1e-4 in bf16 mode (tensor-core f32
-   accumulation), and ids equal as tie-aware sets; the norm pre-pass
-   within 1e-5 of the norm;
+   mode (split-precision TF32 products, summed per 16-wide D slice and
+   promoted to round-to-nearest f32 totals) and 1e-4 in bf16 mode
+   (tensor-core f32 accumulation), and ids equal as tie-aware sets; the
+   norm pre-pass within 1e-5 of the norm;
 4. reference -- the port on the card against the repo's end-to-end
    golden band (tests/goldens/reference_e2e.json: cosine, trust, and the
    text->image recon MSE <= 1.1 x the reference's after transform +
@@ -49,7 +52,13 @@ line:
    module on the CPU in float32 and float64: the card's float32 decode
    agrees with both (rtol 1e-4, atol 1e-5 per unit of the output's
    largest magnitude);
-7. cli_path -- the CLI, ``main_torch.main`` in process, with the launch
+7. f32_table -- the f32 mode at full width on a driven path, with the
+   launch counts set to 0 just before it: ``knn(images, images, 15,
+   exclude_self=True, engine="pallas")`` over the whole 31,744 x 4,096
+   f32 image table (four row blocks: four f32-mode launches) against
+   ``engine="xla"``, squared distances at the f32 tolerance and ids
+   tie-aware; prints seconds of both and the launches;
+8. cli_path -- the CLI, ``main_torch.main`` in process, with the launch
    counts set to 0 just before it: ``--synthetic --n_samples 131072
    --feature_dtype bfloat16 --knn_engine approx`` and the ``Config``
    defaults otherwise (k=15, out_dim=64, 600 / 120 epochs), its model,
@@ -67,21 +76,25 @@ line:
    table's f32 size), or a kernel mode the run never launched (bf16
    tables in the kernel's bf16 mode; ``approx`` runs its f32 mode in the
    recon app's latent-space invert graph);
-8. engine_checks -- ``lobpcg`` on the CLI model's text graph, from
+9. engine_checks -- ``lobpcg`` on the CLI model's text graph, from
    ``--spectral lobpcg``'s operator and start block: the default run
    (the JAX package's tolerance, whose test scales with the row count)
    must stop at the iteration where the JAX package's rule, computed
    here on the iterate, first passes for every column (its null-space
-   cosine and energy against Chebyshev are printed); a run with
-   ``tol=0`` (all 64 iterations) must agree with Chebyshev: the graph's
-   32 clusters are disconnected, so its null space is 32-dimensional and
-   the 33rd-65th eigenvalues lie close together; the null space
-   ([d^1/2, the first 31 columns]) by principal angles (cosines > 0.99)
-   and the block's Rayleigh energy within 1 % (the cosines of the whole
-   blocks are printed); ``knn(engine="approx")`` against
+   cosines and energy are printed); a run with ``tol=0`` (all 64
+   iterations) must find the graph's null space and agree with
+   Chebyshev: the graph's 32 clusters are disconnected, so its null space
+   is spanned by d^1/2 times each connected component's indicator
+   (components found on the card by label propagation) and the
+   33rd-65th eigenvalues lie close together. Both methods' null-space
+   columns (the first components - 1 of the returned block, whose
+   dropped first column is some null vector, not always d^1/2) must lie
+   in that exact null space by principal angles (cosines > 0.99), and
+   lobpcg's block Rayleigh energy must be within 1 % of Chebyshev's (the
+   cosines of the whole blocks are printed); ``knn(engine="approx")`` against
    ``engine="xla"`` at the main-path block (ids tie-aware, f32
    tolerance);
-9. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
+10. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
    (norm pre-pass, tile kernel, candidate permute + merge ``topk``,
    exact f32 re-score), and the tile kernel at the other main-path
    shapes (D=768; the 1,024-row transform block; the invert block, the
@@ -91,13 +104,16 @@ line:
    launch there (bf16-stored fit blocks, f32 queries cast to bf16 in the
    transform blocks, ``knn_test``'s recall blocks, the app's transform
    and its f32-mode invert graph): held against its plain version as in
-   phase 3, with its time, bound, plain and library times;
-10. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
+   phase 3, with its time, bound, plain and library times (the f32
+   mode's bound is the larger of its bytes and its three TF32 passes at
+   the tensor cores' TF32 rate; ``bound_fma_ms`` is one f32 pass on the
+   CUDA cores' FMA pipe);
+11. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
     times of each kernel (the tile kernel's bf16 and f32 modes are its
-    two entry points) at the main-path block shape -- the f32 mode at
-    its launch on the CLI path, with the main-path block beside it --
-    and launches on the fit/eval path, the recon path and the CLI path;
-11. last line -- ``{"ok": true, "device": {...}}``.
+    two entry points) at the main-path block shape -- the f32 mode with
+    its launch on the CLI path beside it -- and launches on the fit/eval
+    path, the recon path, the f32 table path and the CLI path;
+12. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -125,8 +141,11 @@ OUT_DIR = "chip_smoke_out"  # checkpoint + recon app output (git-ignored)
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak, H100 SXM
+TF32_PASSES = 3  # the f32 mode's split-precision products
 # Tolerances on squared distances, relative to the cancelled-term scale:
-# f32 mode sums in another order than the plain version (~1e-7 seen);
+# f32 mode takes split-precision (3xTF32) products, summed per 16-wide D
+# slice on the tensor cores and then into round-to-nearest f32 totals;
 # bf16 mode accumulates on the tensor cores, whose f32 sums do not round
 # to nearest (1.8e-5 seen at the D=4096 block).
 RTOL = {False: 1e-5, True: 1e-4}
@@ -274,16 +293,26 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def sass_counts(so_path, kernel: str, opcodes) -> dict:
-    """Counts of SASS opcodes in one kernel of a built library."""
+# SASS counted per tile kernel: name -> pattern (one match per instruction)
+SASS_PATTERNS = {"HGMMA": r"\bHGMMA\b", "HGMMA_TF32": r"\bHGMMA\b[^\n]*TF32",
+                 "UTMALDG": r"\bUTMALDG\b", "FFMA": r"\bFFMA\b"}
+
+
+def sass_counts(so_path, kernels) -> dict:
+    """Counts of the SASS_PATTERNS in each named kernel of a built
+    library."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     sass = subprocess.run(
         [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(so_path)],
         capture_output=True, text=True, check=True).stdout
-    body = next((f for f in sass.split("Function : ") if kernel in
-                 f.split("\n", 1)[0]), "")
-    return {op: len(re.findall(rf"\b{op}\b", body)) for op in opcodes}
+    out = {}
+    for kernel in kernels:
+        body = next((f for f in sass.split("Function : ") if kernel in
+                     f.split("\n", 1)[0]), "")
+        out[kernel] = {name: len(re.findall(pat, body))
+                       for name, pat in SASS_PATTERNS.items()}
+    return out
 
 
 def recon_path(model, train_np, test_np, cfg, dev, out_dir):
@@ -503,6 +532,43 @@ def cli_path(dev, out_dir):
     return line, model, launches, census
 
 
+def component_labels(graph) -> torch.Tensor:
+    """(num_rows,) int64: each row's component, as the least row index in
+    it, by min-label propagation over the valid edges (both directions)
+    with pointer jumping, on the graph's device."""
+    rows = graph.rows.long()[graph.valid]
+    cols = graph.cols.long()[graph.valid]
+    labels = torch.arange(graph.num_rows, device=rows.device)
+    while True:
+        new = labels.clone()
+        new.scatter_reduce_(0, rows, labels[cols], "amin")
+        new.scatter_reduce_(0, cols, labels[rows], "amin")
+        new = new[new]
+        if torch.equal(new, labels):
+            return labels
+        labels = new
+
+
+def exact_null_space(graph) -> torch.Tensor:
+    """(num_rows, components) float64 orthonormal basis of the normalized
+    Laplacian's null space: d^1/2 on each connected component."""
+    from multimodal_umap_tpu_torch.ops import spectral as PS
+
+    d_sqrt = (1.0 / PS._Laplacian(graph).d_inv_sqrt).double()
+    _, comp = torch.unique(component_labels(graph), return_inverse=True)
+    basis = torch.zeros((graph.num_rows, int(comp.max()) + 1),
+                        dtype=torch.float64, device=d_sqrt.device)
+    basis[torch.arange(graph.num_rows, device=d_sqrt.device), comp] = d_sqrt
+    return basis / torch.linalg.vector_norm(basis, dim=0)
+
+
+def subspace_cosines(a, b) -> torch.Tensor:
+    """Cosines of the principal angles between the column spans."""
+    qa, _ = torch.linalg.qr(a.double())
+    qb, _ = torch.linalg.qr(b.double())
+    return torch.linalg.svdvals(qa.T @ qb)
+
+
 def engine_checks(cli_model, images, dev):
     """Phase 8 (see the module docstring)."""
     from multimodal_umap_tpu_torch.ops import spectral as PS
@@ -549,36 +615,31 @@ def engine_checks(cli_model, images, dev):
             "converged_one_iteration_earlier": before,
             "stops_as_jax": (iters == 64 or at_stop == out_dim + 1)
             and (before is None or before < out_dim + 1)}
-    vectors = {"lobpcg": vecs[:, 1:], "lobpcg_tol0": out["lobpcg_tol0"][1][:, 1:]}
+    vectors = {"lobpcg": vecs[:, 1:], "lobpcg_tol0": out["lobpcg_tol0"][1][:, 1:],
+               "chebyshev": out["chebyshev"]}
     iterations = {"lobpcg": iters, "lobpcg_tol0": out["lobpcg_tol0"][2]}
     lap = PS._Laplacian(graph)
-    trivial = (1.0 / lap.d_inv_sqrt)[:, None]
-
-    def cosines(a, b):
-        qa, _ = torch.linalg.qr(a.double())
-        qb, _ = torch.linalg.qr(b.double())
-        return torch.linalg.svdvals(qa.T @ qb)
+    null_basis = exact_null_space(graph)
+    n_comp = null_basis.shape[1]
+    cosines = subspace_cosines
 
     def energy(v):
         qv, _ = torch.linalg.qr(v)
         return float((qv * lap(qv)).sum())
 
-    def null_space(v):
-        return torch.cat([trivial, v[:, :N_CLUSTERS - 1]], 1)
-
     cheb = out["chebyshev"]
     e_cheb = energy(cheb)
     lobpcg = {"graph_rows": n, "out_dim": out_dim,
-              "null_space_dim": N_CLUSTERS, "energy_chebyshev": e_cheb,
+              "null_space_dim": n_comp, "energy_chebyshev": e_cheb,
               "chebyshev_seconds": seconds["chebyshev"],
               "default_run_stopping_rule": rule}
     for name, v in vectors.items():
         whole = cosines(v, cheb)
         lobpcg[name] = {
-            "iterations": iterations[name], "seconds": seconds[name],
+            "iterations": iterations.get(name), "seconds": seconds[name],
             "finite": bool(torch.isfinite(v).all()),
             "null_space_cosine_min": float(
-                cosines(null_space(v), null_space(cheb)).min()),
+                cosines(v[:, :n_comp - 1], null_basis).min()),
             "whole_block_cosines_min": float(whole.min()),
             "whole_block_cosines_median": float(whole.median()),
             "energy": energy(v)}
@@ -590,6 +651,33 @@ def engine_checks(cli_model, images, dev):
     return {"phase": "engine_checks", "lobpcg": lobpcg,
             "approx_vs_xla": {"shape": [BLOCK_ROWS, images.shape[0],
                                         images.shape[1]], **approx_cmp}}
+
+
+def f32_table(images):
+    """Phase 7 (see the module docstring). Returns (the phase's JSON line,
+    the f32-mode launches it made)."""
+    from multimodal_umap_tpu_torch.ops import knn_tile as KT
+    from multimodal_umap_tpu_torch.ops.knn import knn
+
+    sync = torch.cuda.synchronize
+    sync()
+    reset_counts(KT)
+    t0 = time.perf_counter()
+    d_p, i_p = knn(images, images, K, exclude_self=True, engine="pallas")
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = KT.KNN_TILE_F32_LAUNCHES
+    t0 = time.perf_counter()
+    d_x, i_x = knn(images, images, K, exclude_self=True, engine="xla")
+    sync()
+    xla_seconds = time.perf_counter() - t0
+    cmp = tie_aware_match(d_p ** 2, i_p, d_x ** 2, i_x,
+                          sq_scale(images, images), RTOL[False])
+    return {"phase": "f32_table", "shape": list(images.shape), "k": K,
+            "engine": "pallas", "seconds": seconds,
+            "xla_seconds": xla_seconds, "knn_tile_f32_launches": launches,
+            "other_launches": tile_launches(KT) - launches
+            + KT.ROW_NORM_LAUNCHES, "vs_xla": cmp}, launches
 
 
 def main() -> None:
@@ -627,16 +715,20 @@ def main() -> None:
     t0 = time.perf_counter()
     KT.build()
     ptxas = ptxas_report(KT.BUILD_LOG)
-    sass = sass_counts(KT.SO_PATH, "knn_tile_bf16_kernel",
-                       ("HGMMA", "UTMALDG"))
+    sass = sass_counts(KT.SO_PATH, ("knn_tile_bf16_kernel",
+                                    "knn_tile_f32_kernel"))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": KT.BUILD_SECONDS, "ptxas": ptxas,
-          "knn_tile_bf16_sass": sass})
+          "sass_counts": sass})
     check(set(ptxas) >= set(KERNEL_FUNCTIONS), "ptxas report incomplete")
     check(all(v.get("spill_bytes") == 0 for v in ptxas.values()),
           "a kernel spills registers")
-    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
+    check(sass["knn_tile_bf16_kernel"]["HGMMA"] > 0
+          and sass["knn_tile_bf16_kernel"]["UTMALDG"] > 0,
           "bf16 tile kernel has no wgmma or no TMA load")
+    check(sass["knn_tile_f32_kernel"]["HGMMA_TF32"] > 0
+          and sass["knn_tile_f32_kernel"]["UTMALDG"] > 0,
+          "f32 tile kernel has no TF32 wgmma or no TMA load")
 
     t0 = time.perf_counter()
     data = clustered_modalities(N_TRAIN + N_TEST, dims=DIMS, seed=0,
@@ -817,7 +909,17 @@ def main() -> None:
           "the recon path launched no kernel")
     recon_f32_launches = KT.KNN_TILE_F32_LAUNCHES
 
-    # 7. the CLI path at 131,072 pairs, bf16-stored tables
+    # 7. the f32 mode over the whole image table
+    fline, table_f32_launches = f32_table(images)
+    emit(fline)
+    check(fline["vs_xla"]["values_ok"] and fline["vs_xla"]["ids_ok"],
+          "pallas engine (f32 mode) disagrees with the exact engine")
+    check(table_f32_launches == -(-N_TRAIN // BLOCK_ROWS)
+          and fline["other_launches"] == 0,
+          f"f32 table path: {table_f32_launches} f32-mode launches, "
+          f"{fline['other_launches']} others")
+
+    # 8. the CLI path at 131,072 pairs, bf16-stored tables
     cline, cli_model, cli_launches, census = cli_path(dev, OUT_DIR)
     emit(cline)
     metrics = cline["metrics"]
@@ -839,7 +941,7 @@ def main() -> None:
     check(all(v > 0 for v in cli_launches.values()),
           f"CLI path left a kernel mode unlaunched: {cli_launches}")
 
-    # 8. lobpcg and approx on the card
+    # 9. lobpcg and approx on the card
     eline = engine_checks(cli_model, images, dev)
     emit(eline)
     lob = eline["lobpcg"]
@@ -848,15 +950,20 @@ def main() -> None:
           "lobpcg returned non-finite vectors")
     check(lob["default_run_stopping_rule"]["stops_as_jax"],
           "--spectral lobpcg did not stop where the JAX package's rule does")
+    check(lob["null_space_dim"] == N_CLUSTERS,
+          f"CLI graph has {lob['null_space_dim']} components, not "
+          f"{N_CLUSTERS}")
     check(full["null_space_cosine_min"] > 0.99,
-          "lobpcg's null space disagrees with Chebyshev's")
+          "lobpcg's null-space columns leave the graph's null space")
+    check(lob["chebyshev"]["null_space_cosine_min"] > 0.99,
+          "Chebyshev's null-space columns leave the graph's null space")
     check(full["energy"] <= 1.01 * lob["energy_chebyshev"],
           "lobpcg's block energy is > 1 % above Chebyshev's")
     check(eline["approx_vs_xla"]["values_ok"]
           and eline["approx_vs_xla"]["ids_ok"],
           "approx engine disagrees with the exact engine")
 
-    # 9. knn_tiled's stages at the main-path block (rows [0, 8192) of the
+    # 10. knn_tiled's stages at the main-path block (rows [0, 8192) of the
     # D=4096 fit graph, bf16), and the tile kernel at the other shapes,
     # each also held against its plain version there
     from multimodal_umap_tpu_torch.ops.knn import _exact_rescore_sq
@@ -889,15 +996,22 @@ def main() -> None:
         return vals, ids_c.gather(1, sel)
 
     def bound_ms(nq, n, d, tile_k, bf16=True):
-        """Operations at the mode's peak (bf16 tensor cores, or f32 off
-        them) against the bytes: both tables read once (plus the bf16
-        norms), the (col_tiles, nq, tile_k) distances and ids written."""
-        peak, size = (H100_BF16_FLOPS, 2.0) if bf16 else (H100_F32_FLOPS, 4.0)
+        """Operations at the mode's peak (bf16 tensor cores, or the f32
+        mode's three TF32 passes) against the bytes: both tables read
+        once (plus the bf16 norms), the (col_tiles, nq, tile_k) distances
+        and ids written."""
+        peak, size = ((H100_BF16_FLOPS, 2.0) if bf16
+                      else (H100_TF32_FLOPS / TF32_PASSES, 4.0))
         t_ops = 2.0 * nq * n * d / peak * 1e3
         nbytes = (size * (nq + n) * d + (4.0 * (nq + n) if bf16 else 0.0)
                   + 8.0 * -(-n // KT.TILE_C) * nq * tile_k)
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    def bound_fma_ms(nq, n, d):
+        """The f32 mode's products as one f32 pass on the CUDA cores' FMA
+        pipe (what a kernel off the tensor cores could at best reach)."""
+        return 2.0 * nq * n * d / H100_F32_FLOPS * 1e3
 
     stages = {
         "norm_prepass_ms": cuda_ms(lambda: (KT.row_norms_sq(qb),
@@ -916,8 +1030,8 @@ def main() -> None:
         ("app invert query, D=64",
          invert_q[torch.as_tensor(app_rows, device=dev)], model.embeds[1],
          tk, False, 0, True),
-        ("fit block, D=4096, f32 mode (approx)", q32, images, K, True, 0,
-         False)]
+        ("fit block, D=4096, f32 mode (pallas / approx)", q32, images, K,
+         True, 0, False)]
     # every signature the CLI path launched, at its first launch's inputs
     for (nq, n, d, dt, tko, ex), v in census.items():
         bf16 = dt == str(torch.bfloat16)
@@ -937,10 +1051,12 @@ def main() -> None:
         del got, want
         b_ms, b_by = bound_ms(qo.shape[0], ro.shape[0], ro.shape[1], tko,
                               bf16)
+        fma = {} if bf16 else {"bound_fma_ms": bound_fma_ms(
+            qo.shape[0], ro.shape[0], ro.shape[1])}
         other.append({
             "shape": name, "mode": "bf16" if bf16 else "f32",
             "Q": qo.shape[0], "N": ro.shape[0], "D": ro.shape[1],
-            "tile_k": tko, "bound_ms": b_ms, "bound_by": b_by,
+            "tile_k": tko, "bound_ms": b_ms, "bound_by": b_by, **fma,
             "ms": cuda_ms(lambda: KT.knn_tile(
                 qo, ro, tko, exclude_self=ex, row_offset=off, q_sq=qs,
                 r_sq=rs), 10),
@@ -965,9 +1081,10 @@ def main() -> None:
           f"path, got {len(f32_cli)}")
     f32_row = f32_cli[0]  # the recon app's invert graph under approx
 
-    # 10. kernels line: the fit graph's main-path block at D=4096, bf16;
-    # f32 mode at its one launch on a driven path (the CLI's recon app,
-    # 16 x 131,072 at D=64), with the main-path block in f32 beside it
+    # 11. kernels line: the fit graph's main-path block at D=4096, bf16;
+    # f32 mode at the same block (phase 7 drives it there), with its
+    # launch on the CLI path (the recon app, 16 x 131,072 at D=64) beside
+    # it
     ms = stages["tile_kernel_ms"]
     plain_ms = cuda_ms(lambda: KT.knn_tile_plain(qb, rb, tk, exclude_self=True), 3)
     library_ms = cuda_ms(lambda: library_tile_topk(
@@ -980,7 +1097,10 @@ def main() -> None:
     t_no = n_ops / H100_F32_FLOPS * 1e3
     f32_by_path = {"fit_eval": main_f32_launches,
                    "recon": recon_f32_launches,
+                   "f32_table": table_f32_launches,
                    "cli": cli_launches["knn_tile_f32"]}
+    f32_keys = ("Q", "N", "D", "tile_k", "ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_fma_ms", "library_ms")
     print(json.dumps({"kernels": [{
         "name": "knn_tile",
         "route": "cuda",
@@ -1006,18 +1126,19 @@ def main() -> None:
         "replaces": "multimodal_umap_tpu/ops/knn_pallas.py:48",
         "launches": sum(f32_by_path.values()),
         "launches_by_path": f32_by_path,
-        "max_abs_err": f32_row["vs_plain"]["max_abs_err"],
-        "ms": f32_row["ms"],
-        "plain_ms": f32_row["plain_ms"],
-        "bound_ms": f32_row["bound_ms"],
-        "bound_by": f32_row["bound_by"],
-        "library_ms": f32_row["library_ms"],
-        "shape": {"Q": f32_row["Q"], "N": f32_row["N"], "D": f32_row["D"],
-                  "tile_k": f32_row["tile_k"], "mode": "f32"},
-        "at_main_path_block": {
-            k: f32_block[k] for k in ("Q", "N", "D", "tile_k", "ms",
-                                      "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")},
+        "max_abs_err": f32_block["vs_plain"]["max_abs_err"],
+        "ms": f32_block["ms"],
+        "plain_ms": f32_block["plain_ms"],
+        "bound_ms": f32_block["bound_ms"],
+        "bound_by": f32_block["bound_by"],
+        "bound_fma_ms": f32_block["bound_fma_ms"],
+        "library_ms": f32_block["library_ms"],
+        "shape": {"Q": f32_block["Q"], "N": f32_block["N"],
+                  "D": f32_block["D"], "tile_k": f32_block["tile_k"],
+                  "mode": "f32"},
+        "at_cli_app_shape": {
+            "max_abs_err": f32_row["vs_plain"]["max_abs_err"],
+            **{k: f32_row[k] for k in f32_keys}},
     }, {
         "name": "knn_rownorm",
         "route": "cuda",

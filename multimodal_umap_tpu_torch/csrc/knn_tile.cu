@@ -63,10 +63,56 @@
 // branch-free bisection update) and does not overlap the tensor cores
 // (see PERF.md).
 //
-// f32 mode (explicit only): the CUDA-core FMA panel of the first version
-// (never TF32; 64 x 128 halves, 32-wide D slices, norms accumulated from
-// the loaded values), two halves per 256-column tile, then the same
-// selection.
+// f32 mode (explicit only: the `pallas` and `approx` engines), the same
+// contract with full-f32 inputs, redesigned for Hopper as split-precision
+// (3xTF32) tensor-core products, as the TPU kernel's f32 mode is a
+// multi-pass bf16 emulation of f32 on its matrix unit:
+//   * bound on an H100 SXM: 3 passes of 2*Q*N*D operations at the 495
+//     TFLOP/s dense TF32 rate, 12.91 ms for the 8,192 x 31,744 x 4,096
+//     block (the CUDA cores' 67 TFLOP/s f32 FMA pipe: 31.80 ms); the
+//     app's 16 x 131,072, D=64 launch is bound by its 33.6 MB of r;
+//   * one block per 64 x 256 output tile (the bf16 mode's grouped 1-D
+//     raster); 384 threads: two consumer warpgroups (all 64 rows x 128
+//     columns each) and one producer warpgroup, whose first thread keeps
+//     a ring of 5 stages full with TMA loads of raw f32 slices (16 wide:
+//     64-byte rows, 64-byte swizzle, zero fill past Q and N; D is padded
+//     to 16 by the wrapper). full (TMA), ready (split) and empty
+//     (consumed) mbarriers pace the ring; setmaxnreg gives the consumers
+//     232 registers and the producer 40, then 168 to all for selection;
+//   * the split is done in the kernel, by the 256 consumer threads while
+//     the tensor cores run the previous stage: hi = tf32_rna(x) in place
+//     and lo = tf32_rna(x - hi) in a second buffer of the same layout
+//     (the split is elementwise, so the swizzle does not matter to it),
+//     each row's |x|^2 summed in f32 from the f32 values on the way. No
+//     pre-pass writes split copies of the tables (1.04 GB for the
+//     31,744 x 4,096 table, and 3x the bytes of the bytes-bound D=64
+//     launch). A first version split in 3 warps of the producer
+//     warpgroup and took 13.5 ms per 1,024 of D at the block above (4.1
+//     with the split left out): the split, not the tensor cores, set the
+//     pace, and the consumers' mbarrier polling shared its warps' issue
+//     slots;
+//   * per 16-wide slice, each consumer warpgroup issues `wgmma.mma_async
+//     m64n128k8` tf32 -> f32, both operands K-major: lo_q.hi_r, then
+//     hi_q.lo_r, then hi_q.hi_r (lo.lo, about 2^-22 of |q||r|, is
+//     dropped), 6 per slice into a partial that starts at 0; the partial
+//     is then added into a total in round-to-nearest f32 FADDs. The
+//     tensor cores' f32 sums do not round to nearest: summed over all of
+//     D = 4096 on them (cuBLAS, TF32 on), the same three passes miss the
+//     float64 panel by 2.8e-5 of the cancelled terms, against 3.6e-6 for
+//     this kernel and 4.6e-6 for the plain f32 panel. Partial + total
+//     (128 registers a thread) is why a block has 64 rows and not 128;
+//   * the epilogue is the bf16 mode's: the 64 x 256 panel to shared
+//     memory (aliasing the dead ring) and `select_rows`, all 12 warps.
+//
+// Measured on an H100 80GB HBM3 (700 W), chip_smoke.py and
+// compare_knn_tile.py: 26.7 ms for the 8,192 x 31,744 x 4,096 block (48 %
+// of the TF32 bound; the first version's CUDA-core FMA panel: 96.5 ms;
+// the library chain, f32 torch.matmul + per-tile topk: 62.3 ms), 6.0 ms
+// at D=768 and 0.041 ms for the app's 16 x 131,072, D=64 launch (0.068
+// before). Its main loop runs at about half the TF32 rate, 6.2 ms per
+// 1,024 of D; taking A from registers (no split of q in shared memory)
+// or letting each warpgroup split and sync only its own half of r did
+// not change that (PERF.md).
 //
 // C entry points, bound with ctypes; they launch on the given stream,
 // never synchronize, allocate nothing and return cudaGetLastError().
@@ -86,6 +132,11 @@ constexpr int SEL_ROWS = 2;           // rows a warp selects at once
 constexpr int SCR_WORDS = 2 * TILE_C;
 static_assert(TILE_C <= 256, "columns in a tile must fit 8 bits");
 constexpr uint32_t INF_BITS = 0x7f800000u;
+// Both modes: 2 consumer warpgroups + 1 producer warpgroup, and all
+// warps select.
+constexpr int THREADS = 384;
+constexpr int SEL_WARPS = THREADS / 32;
+constexpr int GROUP_M = 16;  // row tiles per raster group
 
 // ---- bf16 mode geometry ----
 constexpr int BM = 128;                     // rows per block
@@ -93,9 +144,6 @@ constexpr int BK = 64;                      // D slice: 128 bytes of bf16
 constexpr int STAGES = 4;
 constexpr int CONSUMER_REGS = 232;  // main loop: 128 accumulators a thread
 constexpr int SEL_REGS = 168;       // selection: every warp alike
-constexpr int BF_THREADS = 384;  // 2 consumer warpgroups + 1 producer WG
-constexpr int SEL_WARPS = BF_THREADS / 32;  // all warps select
-constexpr int GROUP_M = 16;                 // row tiles per raster group
 constexpr int Q_STAGE_BYTES = BM * BK * 2;      // 16 KB
 constexpr int R_STAGE_BYTES = TILE_C * BK * 2;  // 32 KB
 constexpr int STAGE_BYTES = Q_STAGE_BYTES + R_STAGE_BYTES;
@@ -110,18 +158,29 @@ static_assert(BF_SCR_OFF + SEL_WARPS * SEL_ROWS * SCR_WORDS * 4 <= RING_BYTES,
               "epilogue > ring");
 
 // ---- f32 mode geometry ----
-constexpr int FR = 64;          // rows per block
-constexpr int F_HALF = 128;     // columns per panel pass
-constexpr int F_TILE_D = 32;
-constexpr int F_THREADS = 256;
-constexpr int F_LDQ = FR + 4;
-constexpr int F_LDR = F_HALF + 4;
-constexpr int F_STAGE_OFF = FR * PANEL_LD * 4;
-constexpr int F_SCR_OFF = F_STAGE_OFF + F_TILE_D * (F_LDQ + F_LDR) * 4;
-constexpr int F_QSQ_OFF =
-    F_SCR_OFF + (F_THREADS / 32) * SEL_ROWS * SCR_WORDS * 4;
-constexpr int F_RSQ_OFF = F_QSQ_OFF + FR * 4;
-constexpr int F_SMEM_BYTES = F_RSQ_OFF + TILE_C * 4;
+constexpr int FM = 64;                 // rows per block
+constexpr int FK = 16;                 // D slice: 64 bytes of f32
+constexpr int F_STAGES = 5;
+constexpr int F_ROWS = FM + TILE_C;    // q then r rows of a stage: 320
+constexpr int F_Q_BYTES = FM * FK * 4;        // 4 KB
+constexpr int F_X_BYTES = F_ROWS * FK * 4;    // 20 KB: TMA lands, hi in place
+constexpr int F_STAGE_BYTES = 2 * F_X_BYTES;  // + lo
+constexpr int F_RING_BYTES = F_STAGES * F_STAGE_BYTES;
+constexpr int F_BAR_OFF = F_RING_BYTES;       // full, ready, empty
+constexpr int F_QN_OFF = F_BAR_OFF + 3 * F_STAGES * 8;
+constexpr int F_RN_OFF = F_QN_OFF + FM * 4;
+constexpr int F_END = F_RN_OFF + TILE_C * 4;
+constexpr int F_SCR_OFF = FM * PANEL_LD * 4;  // after the panel, in the ring
+constexpr int F_SMEM_BYTES = F_END + 1024;    // + slack for 1 KB alignment
+// chunks of 16 bytes that each consumer thread splits per stage
+constexpr int F_SPLIT_CHUNKS = F_ROWS * FK * 4 / 16 / 256;
+static_assert(F_SCR_OFF + SEL_WARPS * SEL_ROWS * SCR_WORDS * 4 <= F_RING_BYTES,
+              "epilogue > ring");
+static_assert(F_SMEM_BYTES <= 232448, "f32 mode shared memory");
+static_assert(F_SPLIT_CHUNKS * 256 * 16 == F_X_BYTES &&
+                  F_SPLIT_CHUNKS * 64 == F_ROWS,
+              "consumer thread t splits the chunks t + 256 i, of rows "
+              "(t >> 2) + 64 i");
 
 __device__ __forceinline__ float sumsq_bf16x8(uint4 v) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -374,9 +433,49 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t a,
 #undef F8
 }
 
+template <int N = TILE_C / 2>
 __device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-  for (int i = 0; i < TILE_C / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// f32 mode: K-major operand, 64-byte rows swizzled by TMA: 8-row groups
+// 512 bytes apart.
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// d (+)= a . b^T for a 64 x 8 tf32 tile a and a 128 x 8 tile b, both
+// K-major in shared memory; scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float* d, uint64_t a,
+                                                     uint64_t b, int scale_d) {
+#define F8(i)                                                        \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),    \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+#undef F8
+}
+
+// cvt.rna.tf32.f32 of a finite x: x rounded to TF32 (10 explicit mantissa
+// bits; the low 13 bits 0) to nearest, ties away from zero, in two integer
+// operations (half a TF32 ulp added to the magnitude bits, then
+// truncation) instead of the four of the instruction's lowering.
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
 }
 
 __global__ void rownorm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
@@ -393,7 +492,7 @@ __global__ void rownorm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   if (lane == 0) out[row] = s;
 }
 
-__global__ void __launch_bounds__(BF_THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 knn_tile_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_r,
                      const float* __restrict__ q_sq,
@@ -457,7 +556,7 @@ knn_tile_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     // Take the registers the consumers give back, then select with them.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(SEL_REGS));
-    asm volatile("bar.sync 2, %0;\n" ::"n"(BF_THREADS) : "memory");
+    asm volatile("bar.sync 2, %0;\n" ::"n"(THREADS) : "memory");
     select_rows(panel, qn, rn, BM, warp, SEL_WARPS, scr, row0, col0, ct, Q, N,
                 tile_k, row_offset, exclude_self, d_out, i_out);
   } else {
@@ -509,126 +608,218 @@ knn_tile_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (ctid < BM) qn[ctid] = row0 + ctid < Q ? q_sq[row0 + ctid] : 0.f;
     rn[ctid] = col0 + ctid < N ? r_sq[col0 + ctid] : 0.f;
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(SEL_REGS));
-    asm volatile("bar.sync 2, %0;\n" ::"n"(BF_THREADS) : "memory");
+    asm volatile("bar.sync 2, %0;\n" ::"n"(THREADS) : "memory");
     select_rows(panel, qn, rn, BM, warp, SEL_WARPS, scr, row0, col0, ct, Q, N,
                 tile_k, row_offset, exclude_self, d_out, i_out);
   }
 }
 
 // ---------------------------------------------------------------------------
-// f32 mode: one 64 x 128 half of the tile on the CUDA cores (4x8 outputs a
-// thread), written to `panel` (already offset to the half's first column).
-__device__ __forceinline__ void panel_f32_half(
-    const float* __restrict__ q, const float* __restrict__ r, int Q, int N,
-    int D, int row0, int col0, float* stage, float* panel, float* q_sq,
-    float* r_sq) {
-  const int tid = threadIdx.x;
-  float* qs = stage;                  // [F_TILE_D][F_LDQ]
-  float* rs = qs + F_TILE_D * F_LDQ;  // [F_TILE_D][F_LDR]
-  const int ty = tid >> 4, tx = tid & 15;
-  const int vrow = tid >> 3, vd = (tid & 7) * 4;  // float4 staging slot
+// f32 mode: split-precision (3xTF32) products on the tensor cores. Each
+// f32 value x becomes hi = tf32(x) and lo = tf32(x - hi), and
+// q . r ~= lo_q . hi_r + hi_q . lo_r + hi_q . hi_r (lo . lo, ~2^-22 of
+// |q||r|, is dropped). Block: 64 rows x 256 columns; consumer warpgroup
+// w computes columns w*128 .. w*128+127 of all 64 rows.
 
-  float acc[4][8];
+// Splits one landed stage, in place (hi) and into the lo buffer: thread t
+// of the 256 consumers takes the 16-byte chunks t + 256 i, all of row
+// (t >> 2) + 64 i (the swizzle permutes chunks within a 64-byte row, and a
+// warp's 32 chunks are 512 contiguous bytes, so no bank conflicts), and
+// adds their squares to that row's norm.
+__device__ __forceinline__ void split_stage(unsigned char* stage, int t,
+                                            float* nrm) {
+  float4* x = reinterpret_cast<float4*>(stage);
+  float4* lo = x + F_X_BYTES / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float qn[2] = {0.f, 0.f}, rn[4] = {0.f, 0.f, 0.f, 0.f};
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int d0 = 0; d0 < D; d0 += F_TILE_D) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int row = vrow + 32 * j, gq = row0 + row;
-      float4 x = zero;
-      if (gq < Q) x = *reinterpret_cast<const float4*>(q + (size_t)gq * D + d0 + vd);
-      qn[j] = fmaf(x.x, x.x, fmaf(x.y, x.y, fmaf(x.z, x.z, fmaf(x.w, x.w, qn[j]))));
-      qs[(vd + 0) * F_LDQ + row] = x.x;
-      qs[(vd + 1) * F_LDQ + row] = x.y;
-      qs[(vd + 2) * F_LDQ + row] = x.z;
-      qs[(vd + 3) * F_LDQ + row] = x.w;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = vrow + 32 * j, gr = col0 + row;
-      float4 x = zero;
-      if (gr < N) x = *reinterpret_cast<const float4*>(r + (size_t)gr * D + d0 + vd);
-      rn[j] = fmaf(x.x, x.x, fmaf(x.y, x.y, fmaf(x.z, x.z, fmaf(x.w, x.w, rn[j]))));
-      rs[(vd + 0) * F_LDR + row] = x.x;
-      rs[(vd + 1) * F_LDR + row] = x.y;
-      rs[(vd + 2) * F_LDR + row] = x.z;
-      rs[(vd + 3) * F_LDR + row] = x.w;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int d = 0; d < F_TILE_D; ++d) {
-      float a[4], b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[d * F_LDQ + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = rs[d * F_LDR + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int i = 0; i < F_SPLIT_CHUNKS; ++i) {
+    const int c = t + 256 * i;
+    const float4 v = x[c];
+    nrm[i] = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z,
+                                                 fmaf(v.w, v.w, nrm[i]))));
+    float4 h, l;
+    h.x = tf32_rna(v.x);
+    h.y = tf32_rna(v.y);
+    h.z = tf32_rna(v.z);
+    h.w = tf32_rna(v.w);
+    l.x = tf32_rna(v.x - h.x);
+    l.y = tf32_rna(v.y - h.y);
+    l.z = tf32_rna(v.z - h.z);
+    l.w = tf32_rna(v.w - h.w);
+    x[c] = h;
+    lo[c] = l;
   }
-
-  // Norms: the 8 lanes sharing a staging row hold its partial sums.
-#pragma unroll
-  for (int off = 1; off < 8; off <<= 1) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) qn[j] += __shfl_xor_sync(0xffffffffu, qn[j], off);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) rn[j] += __shfl_xor_sync(0xffffffffu, rn[j], off);
-  }
-  if ((tid & 7) == 0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) q_sq[vrow + 32 * j] = qn[j];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) r_sq[vrow + 32 * j] = rn[j];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      panel[(ty * 4 + i) * PANEL_LD + tx + 16 * j] = acc[i][j];
+  // Generic-proxy writes, read next by wgmma (the async proxy).
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(F_THREADS)
-knn_tile_f32_kernel(const float* __restrict__ q, const float* __restrict__ r,
+__global__ void __launch_bounds__(THREADS, 1)
+knn_tile_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_r,
                     float* __restrict__ d_out, int* __restrict__ i_out, int Q,
-                    int N, int D, int tile_k, int row_offset,
-                    int exclude_self) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* panel = reinterpret_cast<float*>(smem);
-  float* stage = reinterpret_cast<float*>(smem + F_STAGE_OFF);
-  float* q_sq = reinterpret_cast<float*>(smem + F_QSQ_OFF);
-  float* r_sq = reinterpret_cast<float*>(smem + F_RSQ_OFF);
-  const int row0 = blockIdx.x * FR;
-  const int col0 = blockIdx.y * TILE_C;
-  for (int h = 0; h < TILE_C / F_HALF; ++h)
-    panel_f32_half(q, r, Q, N, D, row0, col0 + h * F_HALF, stage,
-                   panel + h * F_HALF, q_sq, r_sq + h * F_HALF);
+                    int N, int nk, int tile_k, int row_offset, int exclude_self,
+                    int n_row, int n_col) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full_bar = base + F_BAR_OFF;  // TMA landed
+  const uint32_t ready_bar = full_bar + F_STAGES * 8;  // hi / lo written
+  const uint32_t empty_bar = ready_bar + F_STAGES * 8;  // consumers done
+
+  // The bf16 mode's grouped raster, with FM-row tiles.
+  const int group = GROUP_M * n_col;
+  const int first = (blockIdx.x / group) * GROUP_M;
+  const int gsz = min(n_row - first, GROUP_M);
+  const int in_group = blockIdx.x % group;
+  const int row0 = (first + in_group % gsz) * FM;
+  const int ct = in_group / gsz;
+  const int col0 = ct * TILE_C;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(ready_bar + 8 * s, 2 * 128);
+      mbar_init(empty_bar + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  const int warp = threadIdx.x >> 5;
+
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* panel = reinterpret_cast<float*>(smem);
+  float* qn = reinterpret_cast<float*>(smem + F_QN_OFF);
+  float* rn = reinterpret_cast<float*>(smem + F_RN_OFF);
   uint64_t* scr = reinterpret_cast<uint64_t*>(smem + F_SCR_OFF) +
                   warp * SEL_ROWS * TILE_C;
-  select_rows(panel, q_sq, r_sq, FR, warp, F_THREADS / 32, scr, row0, col0,
-              blockIdx.y, Q, N, tile_k, row_offset, exclude_self, d_out, i_out);
+  if (wg == 2) {
+    // ---- producer warpgroup: one thread keeps the ring of raw f32
+    // slices full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(empty_bar + 8 * stage, phase ^ 1u);
+        const uint32_t fb = full_bar + 8 * stage;
+        mbar_expect_tx(fb, F_X_BYTES);
+        const uint32_t dst = base + stage * F_STAGE_BYTES;
+        tma_load_2d(dst, &tm_q, kb * FK, row0, fb);
+        tma_load_2d(dst + F_Q_BYTES, &tm_r, kb * FK, col0, fb);
+        if (++stage == F_STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(SEL_REGS));
+    asm volatile("bar.sync 2, %0;\n" ::"n"(THREADS) : "memory");
+    select_rows(panel, qn, rn, FM, warp, SEL_WARPS, scr, row0, col0, ct, Q, N,
+                tile_k, row_offset, exclude_self, d_out, i_out);
+  } else {
+    // ---- consumer warpgroups. While a stage's products run on the
+    // tensor cores, the 256 consumer threads split the next stage. Each
+    // stage's three passes go into a partial that starts at 0 (the
+    // tensor cores' f32 sums do not round to nearest, and over D = 4096
+    // their error would pass 1e-5 of the cancelled terms); the partial is
+    // then added, rounding to nearest, into the total. The small terms go
+    // first.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int t = threadIdx.x;  // 0..255
+    float nrm[F_SPLIT_CHUNKS];
+    float part[64], tot[64];
+#pragma unroll
+    for (int i = 0; i < F_SPLIT_CHUNKS; ++i) nrm[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) part[i] = tot[i] = 0.f;
+    const uint32_t b_off = F_Q_BYTES + wg * (TILE_C / 2) * FK * 4;
+    mbar_wait(full_bar, 0);
+    split_stage(smem, t, nrm);
+    mbar_arrive(ready_bar);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(ready_bar + 8 * stage, phase);
+      const uint32_t sx = base + stage * F_STAGE_BYTES;
+      const uint64_t a_hi = wgmma_desc_sw64(sx);
+      const uint64_t a_lo = wgmma_desc_sw64(sx + F_X_BYTES);
+      const uint64_t b_hi = wgmma_desc_sw64(sx + b_off);
+      const uint64_t b_lo = wgmma_desc_sw64(sx + F_X_BYTES + b_off);
+      fence_acc<64>(part);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < FK / 8; ++k)  // 32 bytes per k step
+        wgmma_m64n128k8_tf32(part, a_lo + 2 * k, b_hi + 2 * k, k);
+#pragma unroll
+      for (int k = 0; k < FK / 8; ++k)
+        wgmma_m64n128k8_tf32(part, a_hi + 2 * k, b_lo + 2 * k, 1);
+#pragma unroll
+      for (int k = 0; k < FK / 8; ++k)
+        wgmma_m64n128k8_tf32(part, a_hi + 2 * k, b_hi + 2 * k, 1);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      const int next = stage + 1 == F_STAGES ? 0 : stage + 1;
+      if (kb + 1 < nk) {
+        mbar_wait(full_bar + 8 * next, next == 0 ? phase ^ 1u : phase);
+        split_stage(smem + next * F_STAGE_BYTES, t, nrm);
+        mbar_arrive(ready_bar + 8 * next);
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc<64>(part);
+      mbar_arrive(empty_bar + 8 * stage);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) tot[i] += part[i];
+      if (next == 0) phase ^= 1u;
+      stage = next;
+    }
+    // Row norms: the 4 threads of a quad hold the 4 chunks of its rows.
+#pragma unroll
+    for (int i = 0; i < F_SPLIT_CHUNKS; ++i) {
+      nrm[i] += __shfl_xor_sync(0xffffffffu, nrm[i], 1);
+      nrm[i] += __shfl_xor_sync(0xffffffffu, nrm[i], 2);
+    }
+    if ((t & 3) == 0) {
+      qn[t >> 2] = nrm[0];
+#pragma unroll
+      for (int i = 1; i < F_SPLIT_CHUNKS; ++i)
+        rn[(t >> 2) + FM * (i - 1)] = nrm[i];
+    }
+
+    // Both consumer warpgroups are done with the ring: it becomes the panel.
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    {
+      const int prow = (warp & 3) * 16 + (lane >> 2);
+      const int pcol = wg * (TILE_C / 2) + (lane & 3) * 2;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float* p0 = panel + prow * PANEL_LD + j * 8 + pcol;
+        *reinterpret_cast<float2*>(p0) = make_float2(tot[4 * j], tot[4 * j + 1]);
+        *reinterpret_cast<float2*>(p0 + 8 * PANEL_LD) =
+            make_float2(tot[4 * j + 2], tot[4 * j + 3]);
+      }
+    }
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(SEL_REGS));
+    asm volatile("bar.sync 2, %0;\n" ::"n"(THREADS) : "memory");
+    select_rows(panel, qn, rn, FM, warp, SEL_WARPS, scr, row0, col0, ct, Q, N,
+                tile_k, row_offset, exclude_self, d_out, i_out);
+  }
 }
 
-int make_map(CUtensorMap* map, const void* ptr, int rows, int D, int box_rows) {
+// A 2-D tensor map over (rows, D) row-major: boxes of one D slice by
+// `box_rows` rows, swizzled as the mode's wgmma descriptors expect, with
+// zero fill past the last row.
+int make_map(CUtensorMap* map, const void* ptr, int rows, int D, int box_rows,
+             bool f32) {
   cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)D * 2};
-  cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  cuuint64_t strides[1] = {(cuuint64_t)D * (f32 ? 4 : 2)};
+  cuuint32_t box[2] = {(cuuint32_t)(f32 ? FK : BK), (cuuint32_t)box_rows};
   cuuint32_t elem[2] = {1, 1};
   CUresult res = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      f32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -657,34 +848,34 @@ extern "C" int knn_tile_launch(const void* q, const void* r, const void* q_sq,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int n_col = (N + TILE_C - 1) / TILE_C;
-  if (bf16) {
-    if (D % BK != 0 || q_sq == nullptr || r_sq == nullptr)
-      return (int)cudaErrorInvalidValue;
-    CUtensorMap tm_q, tm_r;
-    int err = make_map(&tm_q, q, Q, D, BM);
-    if (!err) err = make_map(&tm_r, r, N, D, TILE_C);
+  const bool f32 = !bf16;
+  if (D % (f32 ? FK : BK) != 0 || (!f32 && (q_sq == nullptr || r_sq == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int rows = f32 ? FM : BM;
+  CUtensorMap tm_q, tm_r;
+  int err = make_map(&tm_q, q, Q, D, rows, f32);
+  if (!err) err = make_map(&tm_r, r, N, D, TILE_C, f32);
+  if (err) return err;
+  const int n_row = (Q + rows - 1) / rows;
+  if (f32) {
+    err = (int)cudaFuncSetAttribute(knn_tile_f32_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    F_SMEM_BYTES);
     if (err) return err;
+    knn_tile_f32_kernel<<<n_row * n_col, THREADS, F_SMEM_BYTES, s>>>(
+        tm_q, tm_r, reinterpret_cast<float*>(d_out),
+        reinterpret_cast<int*>(i_out), Q, N, D / FK, tile_k, row_offset,
+        exclude_self, n_row, n_col);
+  } else {
     err = (int)cudaFuncSetAttribute(knn_tile_bf16_kernel,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     BF_SMEM_BYTES);
     if (err) return err;
-    const int n_row = (Q + BM - 1) / BM;
-    knn_tile_bf16_kernel<<<n_row * n_col, BF_THREADS, BF_SMEM_BYTES, s>>>(
+    knn_tile_bf16_kernel<<<n_row * n_col, THREADS, BF_SMEM_BYTES, s>>>(
         tm_q, tm_r, reinterpret_cast<const float*>(q_sq),
         reinterpret_cast<const float*>(r_sq), reinterpret_cast<float*>(d_out),
         reinterpret_cast<int*>(i_out), Q, N, D / BK, tile_k, row_offset,
         exclude_self, n_row, n_col);
-  } else {
-    if (D % F_TILE_D != 0) return (int)cudaErrorInvalidValue;
-    int err = (int)cudaFuncSetAttribute(
-        knn_tile_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        F_SMEM_BYTES);
-    if (err) return err;
-    dim3 grid((Q + FR - 1) / FR, n_col);
-    knn_tile_f32_kernel<<<grid, F_THREADS, F_SMEM_BYTES, s>>>(
-        reinterpret_cast<const float*>(q), reinterpret_cast<const float*>(r),
-        reinterpret_cast<float*>(d_out), reinterpret_cast<int*>(i_out), Q, N, D,
-        tile_k, row_offset, exclude_self);
   }
   return (int)cudaGetLastError();
 }

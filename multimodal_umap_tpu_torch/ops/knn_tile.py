@@ -19,6 +19,8 @@ into the git-ignored ``build/`` directory at first use, binds it with
   ``ROW_NORM_LAUNCHES``) and its plain version;
 * :func:`launch_geometry` -- padded D, tiles, blocks and shared memory
   of a launch, in Python so that the CPU tests reach it;
+* :func:`tf32_split_plain` -- the f32 mode's split of each value into a
+  TF32 head and its remainder, in plain PyTorch;
 * :func:`knn_tiled` -- the ``knn_pallas`` contract around it: row blocks
   of 8192 queries (bounding the candidate buffer), the exact cross-tile
   merge with ``torch.topk`` and, in bf16 mode, the widened candidate set
@@ -28,8 +30,11 @@ bf16 mode ranks with single-pass bf16 products (f32 accumulation) and
 norms taken from the bf16-rounded values, so the panel is the exact
 squared distance of the rounded vectors; the re-score makes returned
 distances exact f32 (exact w.r.t. the stored values for bf16-stored
-tables, which reach the kernel without an f32 copy). f32 mode keeps full
-f32 products (never TF32).
+tables, which reach the kernel without an f32 copy). f32 mode returns its
+panel's distances without a re-score: its products are split-precision
+(3xTF32: hi.hi + hi.lo + lo.hi on the tensor cores, each 16-wide D slice
+summed into a round-to-nearest f32 total), within 1e-5 of the cancelled
+terms |q|^2 + |r|^2 of the f32 panel.
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ import torch
 
 TILE_C = 256  # column tile of the kernel and of the output contract
 TILE_D = 64  # bf16 D slice of the kernel (one 128-byte TMA box row)
-F32_TILE_D = 32  # f32 D slice; D is zero-padded to a multiple of the slice
+TILE_D_F32 = 16  # f32 D slice (one 64-byte TMA box row)
+# D is zero-padded to a multiple of the mode's slice.
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = (_CSRC / "knn_tile.cu",)
@@ -78,28 +84,27 @@ class Geometry:
     blocks: int  # blocks launched
     threads: int  # threads per block
     smem_bytes: int  # dynamic shared memory per block
-    stages: int  # D slices in flight (bf16 TMA ring); 0 in f32 mode
+    stages: int  # D slices in the TMA ring
 
 
 def launch_geometry(nq: int, n: int, d: int, bf16: bool) -> Geometry:
     """The tile kernel's launch geometry for q (nq, d), r (n, d)."""
-    slice_d = TILE_D if bf16 else F32_TILE_D
+    slice_d = TILE_D if bf16 else TILE_D_F32
     d_pad = -(-d // slice_d) * slice_d
     col_tiles = _num_col_tiles(n)
     if bf16:
-        stages, rows = 4, 128
+        # bf16 slices of q and r; full/empty mbarriers
+        stages, rows, barriers = 4, 128, 2
         stage_bytes = (rows + TILE_C) * TILE_D * 2
-        # ring + full/empty mbarriers + row/column norms + 1 KB alignment
-        smem = stages * stage_bytes + 2 * stages * 8 + 4 * (rows + TILE_C) + 1024
-        threads = 384
     else:
-        stages, rows, threads = 0, 64, 256
-        ld = TILE_C + 8
-        smem = 4 * (rows * ld + F32_TILE_D * (rows + 4 + 128 + 4)
-                    + (threads // 32) * 2 * 2 * TILE_C
-                    + rows + TILE_C)
+        # f32 slices of q and r, twice (hi in place, lo); full/ready/empty
+        stages, rows, barriers = 5, 64, 3
+        stage_bytes = 2 * (rows + TILE_C) * TILE_D_F32 * 4
+    # ring + mbarriers + row/column norms + 1 KB alignment
+    smem = (stages * stage_bytes + barriers * stages * 8
+            + 4 * (rows + TILE_C) + 1024)
     return Geometry(d_pad=d_pad, block_rows=rows, col_tiles=col_tiles,
-                    blocks=-(-nq // rows) * col_tiles, threads=threads,
+                    blocks=-(-nq // rows) * col_tiles, threads=384,
                     smem_bytes=smem, stages=stages)
 
 
@@ -214,6 +219,20 @@ def knn_tile_plain(
         torch.arange(nct, device=qf.device) * TILE_C)[None, :, None]
     return (vals[..., :tile_k].permute(1, 0, 2).contiguous(),
             ids.to(torch.int32).permute(1, 0, 2).contiguous())
+
+
+def tf32_split_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the f32 mode's in-kernel split: ``hi`` is each f32
+    value rounded to TF32 (10 explicit mantissa bits; the low 13 bits 0)
+    to nearest, ties away from zero, as ``cvt.rna.tf32.f32``; ``lo`` =
+    x - hi, exact in f32. The kernel feeds the tensor cores hi and
+    tf32(lo) (the head of this function applied to lo)."""
+    x = x.float().contiguous()
+    bits = x.view(torch.int32)
+    # Adding half a TF32 ulp to the magnitude bits and truncating rounds
+    # to nearest with ties away from zero (the sign bit is apart).
+    hi = torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+    return hi, x - hi
 
 
 def row_norms_sq_plain(x: torch.Tensor) -> torch.Tensor:
@@ -377,12 +396,13 @@ def knn_tiled(
     rw = references.to(dtype).contiguous()  # no copy when already dtype
     qw = rw if same else queries.to(dtype).contiguous()
     q_sq = r_sq = None
-    if bf16 and qw.is_cuda:  # the norm pre-pass once per call, not per block
-        d_pad = launch_geometry(num_q, num_r, qw.shape[1], True).d_pad
+    if qw.is_cuda:  # padded (and in bf16 mode normed) once, not per block
+        d_pad = launch_geometry(num_q, num_r, qw.shape[1], bf16).d_pad
         rw = _pad_d(rw, d_pad)
         qw = rw if same else _pad_d(qw, d_pad)
-        r_sq = row_norms_sq(rw)
-        q_sq = r_sq if same else row_norms_sq(qw)
+        if bf16:
+            r_sq = row_norms_sq(rw)
+            q_sq = r_sq if same else row_norms_sq(qw)
 
     d_parts, i_parts = [], []
     for s in range(0, num_q, row_block):

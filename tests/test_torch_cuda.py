@@ -5,7 +5,8 @@ version. Imports no JAX, so on a GPU machine without JAX it runs as
 
 Without a GPU every case skips (the kernel has no CPU mode). Tolerance
 on squared distances: rtol (|plain| + max|q|^2 + max|r|^2), rtol 1e-5
-in f32 mode (another summation order) and 1e-4 in bf16 mode (the tensor
+in f32 mode (split-precision products, summed per 16-wide slice and
+promoted to round-to-nearest totals) and 1e-4 in bf16 mode (the tensor
 cores' f32 accumulation does not round to nearest); ids equal as
 tie-aware sets.
 """
@@ -91,6 +92,28 @@ def test_kernel_matches_plain_at_invert_shape(bf16, q_rows):
                   + (r.float() ** 2).sum(1).max())
     rtol = 1e-4 if bf16 else 1e-5
     _assert_tie_aware(d_k, i_k, d_p, i_p, rtol * (d_p.abs() + scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,n,d", [(1024, 8192, 4096), (16, 131_072, 64)])
+def test_f32_mode_matches_plain_at_width(nq, n, d):
+    """The f32 mode (split-precision tensor-core products) at D = 4096,
+    where its per-slice promotion to round-to-nearest sums matters, and
+    at the recon app's invert-graph launch (16 x 131,072, D = 64), with
+    clustered rows so that near neighbours cancel most of the terms."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    centers = torch.randn(64, d, generator=gen, device="cuda") * 3.0
+    r = centers[torch.randint(0, 64, (n,), generator=gen, device="cuda")]
+    r += 0.1 * torch.randn(n, d, generator=gen, device="cuda")
+    q = r[:nq] + 0.05 * torch.randn(nq, d, generator=gen, device="cuda")
+    before = KT.KNN_TILE_F32_LAUNCHES
+    d_k, i_k = KT.knn_tile(q, r, 15)
+    torch.cuda.synchronize()
+    assert KT.KNN_TILE_F32_LAUNCHES == before + 1
+    d_p, i_p = KT.knn_tile_plain(q, r, 15)
+    scale = float((q ** 2).sum(1).max() + (r ** 2).sum(1).max())
+    _assert_tie_aware(d_k, i_k, d_p, i_p, 1e-5 * (d_p.abs() + scale))
 
 
 @pytest.mark.cuda

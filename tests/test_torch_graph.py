@@ -247,3 +247,38 @@ def test_lobpcg_stops_at_jax_iteration_at_scale(n, out_dim):
     theta, _, iters = PS.lobpcg_standard(matvec, p_x0, m=64)
     assert iters == int(j_iters)
     np.testing.assert_allclose(theta.numpy(), np.asarray(j_theta), atol=2e-4)
+
+
+def test_component_labels_span_the_laplacian_null_space():
+    """chip_smoke's component labels (label propagation) equal scipy's
+    connected components on a clustered graph, and d^1/2 on each
+    component is annihilated by the port's Laplacian (up to its 1e-6
+    shift): the exact null space that chip_smoke holds LOBPCG's and
+    Chebyshev's null-space columns against."""
+    import sys
+    from pathlib import Path
+
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import component_labels, exact_null_space
+
+    n, n_clusters = 3000, 7
+    nbrs, w = _cluster_graph(n, 6, n_clusters=n_clusters, seed=3)
+    graph = PG.symmetrize(t(nbrs), t(w))
+    labels = component_labels(graph).numpy()
+    rows = np.repeat(np.arange(n), nbrs.shape[1])
+    n_comp, ref = connected_components(
+        coo_matrix((np.ones(rows.size), (rows, nbrs.ravel())), (n, n)),
+        directed=False)
+    assert n_comp == n_clusters
+    # the same partition, each row labelled by its component's least row
+    least_row = np.unique(ref, return_index=True)[1]
+    assert (labels == least_row[ref]).all()
+    basis = exact_null_space(graph)
+    assert basis.shape == (n, n_comp)
+    np.testing.assert_allclose(basis.T @ basis, np.eye(n_comp), atol=1e-12)
+    lap = PS._Laplacian(graph)
+    resid = lap(basis.float()) - PS._EPS_SHIFT * basis.float()
+    assert float(resid.abs().max()) < 1e-5
