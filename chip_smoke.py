@@ -21,7 +21,13 @@ line:
    the card: the tile kernel in f32 and bf16 modes on the edge cases of
    ``KERNEL_CASES`` plus two main-path blocks (rows [8192, 16384) of the
    31,744 x 4,096 image table and the last fit block, rows [24576,
-   31744) of the 768-d text table, k=15, exclude_self). Squared
+   31744) of the 768-d text table, k=15, exclude_self), and column
+   chunks of the streamed kNN (``knn_tiled`` launches the kernel on
+   ``COL_BLOCK`` = 32,768 reference columns at a time) on a 65,536-row
+   table at D = 4,096 and 768: an 8,192-row block against the chunk past
+   it (negative ``row_offset``: no self column inside), against the chunk
+   holding it, and 300 rows against a 500-column chunk holding half their
+   self columns. Squared
    distances within rtol (|b| + max|q|^2 + max|r|^2), rtol 1e-5 in f32
    mode (split-precision TF32 products, summed per 16-wide D slice and
    promoted to round-to-nearest f32 totals) and 1e-4 in bf16 mode
@@ -71,8 +77,8 @@ line:
    bit-equal and bf16, ``feature_dtype`` "bfloat16"). Fails on cosine <
    0.9, a non-finite metric or fit loss, a table that is not bf16, a
    graph stage whose peak holds an f32 copy of the image table (peak
-   minus the tables minus the kNN's candidate buffers of one block --
-   the kernel's outputs and their merge copies -- at or above the
+   minus the tables minus the kNN's candidate buffers of one column
+   chunk -- the kernel's outputs and their merge copies -- at or above the
    table's f32 size), or a kernel mode the run never launched (bf16
    tables in the kernel's bf16 mode; ``approx`` runs its f32 mode in the
    recon app's latent-space invert graph);
@@ -94,7 +100,19 @@ line:
    cosines of the whole blocks are printed); ``knn(engine="approx")`` against
    ``engine="xla"`` at the main-path block (ids tie-aware, f32
    tolerance);
-10. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
+10. scale_path -- ``scale_ladder_torch.run_rung`` at 524,288 pairs, with
+   the launch counts set to 0 just before it: bf16 tables drawn on the
+   card (768 / 4,096 dims, 256 clusters), ``fit`` with the ``Config``
+   defaults (k=15, out_dim=64, 600 / 120 epochs), ``similarity_test``,
+   ``knn_test`` (k=1) and ``embed_and_recon`` of 16 texts; prints phase
+   seconds, each fit stage's peak memory above what was live before it
+   beside its reckoned gate, which bounded forms engaged (kNN column
+   chunks, reverse-lookup and edge blocks, the attraction's slot scan,
+   the per-modality recompute) and the kernel launches per signature.
+   Fails on cosine < 0.9, a non-finite metric or fit loss, recon MSE not
+   below the train-mean predictor's, a bounded form that did not engage,
+   a gated stage at or above its gate, or a kernel never launched;
+11. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
    (norm pre-pass, tile kernel, candidate permute + merge ``topk``,
    exact f32 re-score), and the tile kernel at the other main-path
    shapes (D=768; the 1,024-row transform block; the invert block, the
@@ -103,17 +121,20 @@ line:
    at every launch signature of the CLI path, on the inputs of its first
    launch there (bf16-stored fit blocks, f32 queries cast to bf16 in the
    transform blocks, ``knn_test``'s recall blocks, the app's transform
-   and its f32-mode invert graph): held against its plain version as in
+   and its f32-mode invert graph) and of the scale path (its column
+   chunks): held against its plain version as in
    phase 3, with its time, bound, plain and library times (the f32
    mode's bound is the larger of its bytes and its three TF32 passes at
    the tensor cores' TF32 rate; ``bound_fma_ms`` is one f32 pass on the
    CUDA cores' FMA pipe);
-11. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
+12. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
     times of each kernel (the tile kernel's bf16 and f32 modes are its
-    two entry points) at the main-path block shape -- the f32 mode with
-    its launch on the CLI path beside it -- and launches on the fit/eval
-    path, the recon path, the f32 table path and the CLI path;
-12. last line -- ``{"ok": true, "device": {...}}``.
+    two entry points) at the main-path block shape -- the bf16 mode with
+    its scale-path column chunk (8,192 x 32,768 at D = 4,096 and 768)
+    beside it, the f32 mode with its launch on the CLI path -- and
+    launches on the fit/eval path, the recon path, the f32 table path,
+    the CLI path and the scale path;
+13. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -137,6 +158,8 @@ N_APP = 16  # crossmodal_recon samples, as main.py picks them
 # 118,287 images; its synthetic data has clustered_modalities' default
 # 32 clusters.
 N_CLI, N_CLUSTERS = 131_072, 32
+# The scale path's pairs: the scale ladder's first rung (bf16 tables).
+N_SCALE = 524_288
 OUT_DIR = "chip_smoke_out"  # checkpoint + recon app output (git-ignored)
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
@@ -194,7 +217,7 @@ def library_tile_topk(q, r, tile_k, tile_c, *, exclude_self=False,
              + r_sq[None, :]).clamp_min(0.0)
     if exclude_self:
         rows = torch.arange(nq, device=q.device)
-        ok = rows + row_offset < n
+        ok = (rows + row_offset >= 0) & (rows + row_offset < n)
         panel[rows[ok], rows[ok] + row_offset] = float("inf")
     nct = -(-n // tile_c)
     panel = torch.nn.functional.pad(panel, (0, nct * tile_c - n),
@@ -489,9 +512,12 @@ def cli_path(dev, out_dir):
     peaks = {k: v - base for k, v in model.timer.peak_bytes.items()
              if k.startswith("fit/")}
     tk = KT.bf16_tile_k(K, N_CLI - 1)
-    # One row block's candidates: the kernel's (col_tiles, rows, tile_k)
-    # f32 distances and int32 ids, and the merge's permuted copies.
-    cand_bytes = 4 * 4 * KT._num_col_tiles(N_CLI) * BLOCK_ROWS * tk
+    # One column chunk's candidates (knn_tiled launches the kernel on
+    # COL_BLOCK reference columns at a time): the kernel's (col_tiles,
+    # rows, tile_k) f32 distances and int32 ids, and the merge's permuted
+    # copies.
+    cand_bytes = (4 * 4 * KT._num_col_tiles(min(N_CLI, KT.COL_BLOCK))
+                  * BLOCK_ROWS * tk)
     f32_image = N_CLI * DIMS[1] * 4
     graph_extra = peaks["fit/graph_1"] - tables - cand_bytes
     with open(os.path.join(log_dir, "metrics.json")) as f:
@@ -744,6 +770,7 @@ def main() -> None:
     texts = torch.from_numpy(train_np["texts"]).to(dev)
     last = N_TRAIN - (N_TRAIN - 1) // BLOCK_ROWS * BLOCK_ROWS  # 7,168 rows
     blocks = [(images, BLOCK_ROWS, BLOCK_ROWS), (texts, N_TRAIN - last, last)]
+    big = torch.randn(2 * KT.COL_BLOCK, DIMS[1], generator=gen, device=dev)
     results = []
     for bf16 in (False, True):
         dt = torch.bfloat16 if bf16 else torch.float32
@@ -769,7 +796,38 @@ def main() -> None:
                 "tile_k": tk, "bf16": bf16,
                 **tie_aware_match(*got, *want, sq_scale(qb, rb), RTOL[bf16])})
             del got, want
-    main_block_err = results[-2]["max_abs_err"]
+        # column chunks of the streamed kNN (one launch per COL_BLOCK
+        # columns): a chunk past the query block (negative row_offset,
+        # no self column inside), the chunk holding it, and a chunk that
+        # holds half the block's self columns
+        for d in DIMS:
+            chunk_table = big[:, :d].to(dt).contiguous()
+            tk = KT.bf16_tile_k(K, 2 * KT.COL_BLOCK - 1) if bf16 else K
+            for name, start, c0, rows, cols in (
+                    ("chunk past the block", 0, KT.COL_BLOCK, BLOCK_ROWS,
+                     KT.COL_BLOCK),
+                    ("chunk holding the block", KT.COL_BLOCK + BLOCK_ROWS,
+                     KT.COL_BLOCK, BLOCK_ROWS, KT.COL_BLOCK),
+                    ("chunk holding half the block", 0, 150, 300, 500)):
+                qb = chunk_table[start:start + rows]
+                rb = chunk_table[c0:c0 + cols]
+                off = start - c0
+                got = KT.knn_tile(qb, rb, tk, exclude_self=True,
+                                  row_offset=off)
+                torch.cuda.synchronize()
+                want = KT.knn_tile_plain(qb, rb, tk, exclude_self=True,
+                                         row_offset=off)
+                results.append({
+                    "chunk": name, "shape": [rows, cols, d],
+                    "row_offset": off, "tile_k": tk, "bf16": bf16,
+                    **tie_aware_match(*got, *want, sq_scale(qb, rb),
+                                      RTOL[bf16])})
+                del got, want
+            del chunk_table
+    del big
+    main_block_err = next(c["max_abs_err"] for c in results
+                          if c.get("row_offset") == BLOCK_ROWS
+                          and c["bf16"] and "chunk" not in c)
     rb = images.to(torch.bfloat16)
     norm_k = KT.row_norms_sq(rb)
     torch.cuda.synchronize()
@@ -963,7 +1021,25 @@ def main() -> None:
           and eline["approx_vs_xla"]["ids_ok"],
           "approx engine disagrees with the exact engine")
 
-    # 10. knn_tiled's stages at the main-path block (rows [0, 8192) of the
+    # 10. the scale path: the ladder's first rung in process, 524,288
+    # pairs with bf16 tables at full width (scale_ladder_torch.py)
+    import scale_ladder_torch as ladder
+
+    torch.cuda.synchronize()
+    reset_counts(KT)
+    sline, scale_census = ladder.run_rung(N_SCALE, dev)
+    scale_launches = {"knn_tile_bf16": KT.KNN_TILE_BF16_LAUNCHES,
+                      "knn_tile_f32": KT.KNN_TILE_F32_LAUNCHES,
+                      "knn_rownorm": KT.ROW_NORM_LAUNCHES}
+    scale_fails = ladder.failures(sline)
+    sline.update(cut="none", launches=scale_launches, failures=scale_fails)
+    emit(sline)
+    check(not scale_fails, "scale path: " + "; ".join(scale_fails))
+    check(scale_launches["knn_tile_bf16"] > 0
+          and scale_launches["knn_rownorm"] > 0,
+          f"scale path left a kernel unlaunched: {scale_launches}")
+
+    # 11. knn_tiled's stages at the main-path block (rows [0, 8192) of the
     # D=4096 fit graph, bf16), and the tile kernel at the other shapes,
     # each also held against its plain version there
     from multimodal_umap_tpu_torch.ops.knn import _exact_rescore_sq
@@ -1038,6 +1114,13 @@ def main() -> None:
         cases.append((f"CLI {nq} x {n}, D={d}, {'bf16' if bf16 else 'f32'}"
                       f"{', self' if ex else ''} ({v['launches']} launches)",
                       v["q"], v["r"], tko, ex, v["row_offset"], bf16))
+    # and every signature of the scale path (its column chunks)
+    for (nq, n, d, dt, tko, ex, path), v in scale_census.items():
+        bf16 = dt == str(torch.bfloat16)
+        cases.append((f"scale {path} {nq} x {n}, D={d}, "
+                      f"{'bf16' if bf16 else 'f32'}{', self' if ex else ''} "
+                      f"({v['launches']} launches)",
+                      v["q"], v["r"], tko, ex, v["row_offset"], bf16))
     for name, qo, ro, tko, ex, off, bf16 in cases:
         dt = torch.bfloat16 if bf16 else torch.float32
         qo, ro = qo.to(dt), ro.to(dt)  # no copy for the bf16-stored tables
@@ -1065,7 +1148,12 @@ def main() -> None:
             "library_ms": cuda_ms(lambda: library_tile_topk(
                 qo, ro, tko, KT.TILE_C, exclude_self=ex, row_offset=off), 10),
             "vs_plain": cmp})
-    del census, cases
+    # launches of the fit graph's (8,192 x COL_BLOCK) chunk, by D
+    chunk_launches = {key[2]: v["launches"]
+                      for key, v in scale_census.items()
+                      if key[-1] == "fit" and key[:2] == (BLOCK_ROWS,
+                                                          KT.COL_BLOCK)}
+    del census, scale_census, cases
     emit({"phase": "knn_stages", "shape": {"Q": BLOCK_ROWS, "N": N_TRAIN,
                                            "D": DIMS[1], "tile_k": tk,
                                            "cand": cand, "k": K},
@@ -1074,17 +1162,30 @@ def main() -> None:
               for o in other),
           "tile kernel disagrees with plain at a main-path shape")
     f32_block = next(o for o in other if o["mode"] == "f32"
-                     and not o["shape"].startswith("CLI"))
+                     and not o["shape"].startswith(("CLI", "scale")))
     f32_cli = [o for o in other if o["mode"] == "f32"
                and o["shape"].startswith("CLI")]
     check(len(f32_cli) == 1, "expected one f32-mode signature on the CLI "
           f"path, got {len(f32_cli)}")
     f32_row = f32_cli[0]  # the recon app's invert graph under approx
 
-    # 11. kernels line: the fit graph's main-path block at D=4096, bf16;
-    # f32 mode at the same block (phase 7 drives it there), with its
-    # launch on the CLI path (the recon app, 16 x 131,072 at D=64) beside
-    # it
+    scale_chunk = {
+        o["D"]: {"launches": chunk_launches[o["D"]],
+                 "max_abs_err": o["vs_plain"]["max_abs_err"],
+                 **{k: o[k] for k in ("Q", "N", "D", "tile_k", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}}
+        for o in other if o["shape"].startswith("scale fit")
+        and (o["Q"], o["N"]) == (BLOCK_ROWS, KT.COL_BLOCK)}
+    check(sorted(scale_chunk) == sorted(DIMS),
+          f"scale path: no fit chunk launch of {BLOCK_ROWS} x "
+          f"{KT.COL_BLOCK} at D = {DIMS}")
+
+    # 12. kernels line: the fit graph's main-path block at D=4096, bf16,
+    # with its column chunk on the scale path (8,192 x COL_BLOCK, D = 4,096
+    # and 768) beside it; f32 mode at the same block (phase 7 drives it
+    # there), with its launch on the CLI path (the recon app's 16 x
+    # COL_BLOCK chunks at D=64) beside it
     ms = stages["tile_kernel_ms"]
     plain_ms = cuda_ms(lambda: KT.knn_tile_plain(qb, rb, tk, exclude_self=True), 3)
     library_ms = cuda_ms(lambda: library_tile_topk(
@@ -1098,7 +1199,8 @@ def main() -> None:
     f32_by_path = {"fit_eval": main_f32_launches,
                    "recon": recon_f32_launches,
                    "f32_table": table_f32_launches,
-                   "cli": cli_launches["knn_tile_f32"]}
+                   "cli": cli_launches["knn_tile_f32"],
+                   "scale": scale_launches["knn_tile_f32"]}
     f32_keys = ("Q", "N", "D", "tile_k", "ms", "plain_ms", "bound_ms",
                 "bound_by", "bound_fma_ms", "library_ms")
     print(json.dumps({"kernels": [{
@@ -1107,10 +1209,11 @@ def main() -> None:
         "source": "multimodal_umap_tpu_torch/csrc/knn_tile.cu",
         "replaces": "multimodal_umap_tpu/ops/knn_pallas.py:48",
         "launches": main_launches + recon_launches
-        + cli_launches["knn_tile_bf16"],
+        + cli_launches["knn_tile_bf16"] + scale_launches["knn_tile_bf16"],
         "launches_by_path": {"fit_eval": main_launches,
                              "recon": recon_launches,
-                             "cli": cli_launches["knn_tile_bf16"]},
+                             "cli": cli_launches["knn_tile_bf16"],
+                             "scale": scale_launches["knn_tile_bf16"]},
         "max_abs_err": main_block_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1119,6 +1222,7 @@ def main() -> None:
         "library_ms": library_ms,
         "shape": {"Q": BLOCK_ROWS, "N": N_TRAIN, "D": DIMS[1], "tile_k": tk,
                   "mode": "bf16"},
+        "at_scale_chunk": [scale_chunk[d] for d in DIMS],
     }, {
         "name": "knn_tile_f32",
         "route": "cuda",
@@ -1145,10 +1249,11 @@ def main() -> None:
         "source": "multimodal_umap_tpu_torch/csrc/knn_tile.cu",
         "replaces": "multimodal_umap_tpu/ops/knn_pallas.py:74",
         "launches": norm_launches + recon_norm_launches
-        + cli_launches["knn_rownorm"],
+        + cli_launches["knn_rownorm"] + scale_launches["knn_rownorm"],
         "launches_by_path": {"fit_eval": norm_launches,
                              "recon": recon_norm_launches,
-                             "cli": cli_launches["knn_rownorm"]},
+                             "cli": cli_launches["knn_rownorm"],
+                             "scale": scale_launches["knn_rownorm"]},
         "max_abs_err": norm_err,
         "ms": stages["norm_prepass_ms"],
         "plain_ms": cuda_ms(lambda: (KT.row_norms_sq_plain(qb),

@@ -22,6 +22,7 @@ import torch
 from ..ops.graph import (
     DenseSymGraph,
     EdgeGraph,
+    _reverse_edge_weights,
     curve_weights,
     embed_query,
     fuzzy_weights,
@@ -56,13 +57,15 @@ class ModalityEncoder:
     def fit_graph(self, features: torch.Tensor
                   ) -> tuple[EdgeGraph, DenseSymGraph, torch.Tensor]:
         """The symmetric fuzzy graph (edge list for spectral, dense view
-        for the layout engine) and its spectral embedding."""
+        for the layout engine; both from one reverse-edge lookup) and its
+        spectral embedding."""
         engine = resolve_engine(self.knn_engine, features.device)
         dists, nbrs = knn(features, features, self.k_neighbors,
                           exclude_self=True, engine=engine)
         weights, rhos, sigmas = fuzzy_weights(dists)
-        graph = symmetrize(nbrs, weights)
-        dense = symmetrize_dense(nbrs, weights)
+        rev = _reverse_edge_weights(nbrs, weights)
+        graph = symmetrize(nbrs, weights, rev)
+        dense = symmetrize_dense(nbrs, weights, rev)
         self.sigmas = sigmas
         self.rhos = rhos
         embed = spectral_embedding(graph, self.out_dim,

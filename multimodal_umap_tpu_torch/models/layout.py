@@ -39,6 +39,7 @@ import os
 import typing
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import losses as L
 from ..ops.graph import DenseSymGraph
@@ -208,9 +209,30 @@ def _inv_window_coef(row_cnt, batch_size: int, num_windows: int
     return inv.repeat_interleave(batch_size)[:n]
 
 
+# Above this many bytes of the (N, k, D) attraction gather the fit loss
+# loops over the k neighbour slots, each recomputed in the backward
+# (multimodal_umap_tpu/models/layout.py:183): per-slot transients are
+# (N, D).
+_ATTR_SLOT_BYTES = 1 << 30
+
+# Above this many rows each modality's fit loss is recomputed in the
+# backward (layout.py:189), so the modalities' autograd residuals are
+# never held together: peak is the largest modality's, not their sum.
+_MODALITY_REMAT_ROWS = 1 << 18
+
+
+def _recompute(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` whose residuals are recomputed in the
+    backward. Its inputs carry every random draw, so no RNG state is
+    kept for the recompute."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kwargs)
+
+
 def _fit_modality_loss(embed, task: LayoutTask, static: TaskStatic,
                        draws: FitDraws, *, a, b, num_rep: int,
-                       batch_size: int, deterministic: bool) -> torch.Tensor:
+                       batch_size: int, deterministic: bool,
+                       slot_bytes: int | None = None) -> torch.Tensor:
     n, k = task.nbrs.shape
     if deterministic:
         keep_f = task.weights
@@ -228,21 +250,39 @@ def _fit_modality_loss(embed, task: LayoutTask, static: TaskStatic,
     inv_row = _inv_window_coef(rowcnt, batch_size, static.num_windows)
 
     loss_attr = _fit_attraction(embed, task, keep_f, keep_b, inv_row,
-                                a=a, b=b)
+                                a=a, b=b, slot_bytes=slot_bytes)
     if num_rep == 0:
         return loss_attr
     return loss_attr + _fit_repulsion(embed, static, draws, rowcnt, inv_row,
                                       a=a, b=b, num_rep=num_rep)
 
 
-def _fit_attraction(embed, task, keep_f, keep_b, inv_row, *, a, b):
+def _fit_attraction(embed, task, keep_f, keep_b, inv_row, *, a, b,
+                    slot_bytes: int | None = None):
     # Both copies of a pair share f(x_i, x_j); the forward copy is
     # windowed by i, the transposed copy by j. The plain (N, k, D)
-    # gather's backward is the modality's one index_add_.
+    # gather's backward is the modality's one index_add_. Past
+    # ``slot_bytes`` (default _ATTR_SLOT_BYTES) of that gather the k
+    # slots run one at a time, each recomputed in the backward: k
+    # index_add_s of (N, D) instead of one of (N*k, D).
     coef = keep_f * inv_row[:, None] + keep_b * inv_row[task.nbrs]
+    n, k = task.nbrs.shape
+    slot_bytes = _ATTR_SLOT_BYTES if slot_bytes is None else slot_bytes
+    if n * k * embed.shape[1] * 4 > slot_bytes:
+        nbrs_t, coef_t = task.nbrs.T.contiguous(), coef.T.contiguous()
+        loss = embed.new_zeros(())
+        for m in range(k):
+            loss = loss + _recompute(_attr_slot, embed, nbrs_t[m],
+                                     coef_t[m], a, b)
+        return loss
     y = embed[task.nbrs]  # (N, k, D)
     attr = L.umap_attr(embed[:, None, :], y, a, b)  # (N, k)
     return (coef * attr).sum()
+
+
+def _attr_slot(embed, nbrs_m, coef_m, a, b):
+    """One neighbour slot's attraction: (N,) ids and coefficients."""
+    return (coef_m * L.umap_attr(embed, embed[nbrs_m], a, b)).sum()
 
 
 def _fit_repulsion(embed, static, draws: FitDraws, rowcnt, inv_row, *,
@@ -331,9 +371,16 @@ def _set_adam_state(optimizer: torch.optim.Adam, params,
 def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
                  num_rep: int, alpha: float, batch_size: int,
                  n_neg_infonce: int = 8, infonce_temperature: float = 0.5,
-                 deterministic: bool = False):
+                 deterministic: bool = False,
+                 remat_rows: int | None = None,
+                 slot_bytes: int | None = None):
     """The total loss of one epoch:
-    ``loss(params, tasks, a, b, draws: EpochDraws) -> scalar``."""
+    ``loss(params, tasks, a, b, draws: EpochDraws) -> scalar``.
+
+    Fit mode recomputes a modality's loss in the backward past
+    ``remat_rows`` rows (default :data:`_MODALITY_REMAT_ROWS`) and scans
+    its attraction's slots past ``slot_bytes`` (default
+    :data:`_ATTR_SLOT_BYTES`); both defaults are read at each call."""
     if mode not in _MODES:
         raise ValueError(f"invalid mode: {mode}")
 
@@ -343,8 +390,14 @@ def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
             kw = dict(a=a, b=b, num_rep=num_rep, batch_size=batch_size,
                       deterministic=deterministic)
             if mode == "fit":
-                loss = _fit_modality_loss(params[i], tasks[i], static,
-                                          draws.modality[i], **kw)
+                args = (params[i], tasks[i], static, draws.modality[i])
+                kw["slot_bytes"] = slot_bytes
+                rows = (_MODALITY_REMAT_ROWS if remat_rows is None
+                        else remat_rows)
+                if static.num_rows > rows:
+                    loss = _recompute(_fit_modality_loss, *args, **kw)
+                else:
+                    loss = _fit_modality_loss(*args, **kw)
             else:
                 loss = _query_modality_loss(params[i], tasks[i], static,
                                             draws.modality[i], mode=mode,

@@ -62,25 +62,49 @@ def curve_weights(dists: torch.Tensor, a: float, b: float) -> torch.Tensor:
     return 1.0 / (1.0 + a * torch.pow(dists.clamp_min(1e-12), 2.0 * b))
 
 
-def _reverse_edge_weights(nbrs: torch.Tensor, weights: torch.Tensor):
-    """For edge (i, j = nbrs[i, m]) the weight w[j, l] with
-    nbrs[j, l] == i, and whether it exists: ((N, k), (N, k) bool).
-    Unblocked: the (N, k, k) transients are ~9 bytes * N k^2, about
-    2 GB at 1M rows and k=15."""
-    nb = nbrs.long()
-    n = nb.shape[0]
-    nbrs_of_nbrs = nb[nb]  # (N, k, k)
-    row_ids = torch.arange(n, device=nb.device)[:, None, None]
+# Rows per block of the reverse-edge lookup (multimodal_umap_tpu/ops/
+# graph.py:92): the (rows, k, k) transients are ~rows*k*k*(8+4+1+4)
+# bytes, ~250 MB at 65,536 rows and k=15, whatever N is.
+_REV_BLOCK = 65536
+
+
+def _reverse_edge_block(nb: torch.Tensor, weights: torch.Tensor,
+                        row0: int, row1: int):
+    """Rows [row0, row1) of :func:`_reverse_edge_weights` (``nb`` the
+    whole (N, k) int64 neighbour table)."""
+    nb_r = nb[row0:row1]
+    nbrs_of_nbrs = nb[nb_r]  # (rows, k, k)
+    row_ids = torch.arange(row0, row1, device=nb.device)[:, None, None]
     match = nbrs_of_nbrs == row_ids
-    w_rev = torch.where(match, weights[nb], 0.0).sum(2)
+    w_rev = torch.where(match, weights[nb_r], 0.0).sum(2)
     return w_rev, match.any(2)
 
 
-def symmetrize(nbrs: torch.Tensor, weights: torch.Tensor) -> EdgeGraph:
+def _reverse_edge_weights(nbrs: torch.Tensor, weights: torch.Tensor,
+                          rev_block: int | None = None):
+    """For edge (i, j = nbrs[i, m]) the weight w[j, l] with
+    nbrs[j, l] == i, and whether it exists: ((N, k), (N, k) bool).
+    Blocks of ``rev_block`` rows (default :data:`_REV_BLOCK`) keep the
+    (rows, k, k) transients constant in N; each row's result is the
+    unblocked one bit for bit (at most one slot matches)."""
+    rev_block = _REV_BLOCK if rev_block is None else rev_block
+    nb = nbrs.long()
+    n = nb.shape[0]
+    w_rev, exists = zip(*(
+        _reverse_edge_block(nb, weights, s, min(s + rev_block, n))
+        for s in range(0, n, rev_block)))
+    return torch.cat(w_rev), torch.cat(exists)
+
+
+def symmetrize(nbrs: torch.Tensor, weights: torch.Tensor,
+               rev: tuple[torch.Tensor, torch.Tensor] | None = None
+               ) -> EdgeGraph:
     """Fuzzy-union symmetrization A + A^T - A o A^T as a fixed 2*N*k
-    edge list exactly covering the symmetric matrix's nonzeros."""
+    edge list exactly covering the symmetric matrix's nonzeros. ``rev``:
+    :func:`_reverse_edge_weights` of (nbrs, weights) when the caller has
+    it already."""
     n, k = nbrs.shape
-    w_rev, exists_rev = _reverse_edge_weights(nbrs, weights)
+    w_rev, exists_rev = rev or _reverse_edge_weights(nbrs, weights)
     sym_w = (weights + w_rev - weights * w_rev).reshape(-1).float()
     rows = torch.arange(n, dtype=torch.int32,
                         device=nbrs.device).repeat_interleave(k)
@@ -98,10 +122,12 @@ def symmetrize(nbrs: torch.Tensor, weights: torch.Tensor) -> EdgeGraph:
     )
 
 
-def symmetrize_dense(nbrs: torch.Tensor, weights: torch.Tensor) -> DenseSymGraph:
+def symmetrize_dense(nbrs: torch.Tensor, weights: torch.Tensor,
+                     rev: tuple[torch.Tensor, torch.Tensor] | None = None
+                     ) -> DenseSymGraph:
     """Dense-layout fuzzy-union symmetrization (same math as
-    :func:`symmetrize`)."""
-    w_rev, exists_rev = _reverse_edge_weights(nbrs, weights)
+    :func:`symmetrize`, same ``rev``)."""
+    w_rev, exists_rev = rev or _reverse_edge_weights(nbrs, weights)
     return DenseSymGraph(
         nbrs=nbrs.to(torch.int32),
         weights=(weights + w_rev - weights * w_rev).float(),

@@ -22,7 +22,9 @@ else the device default):
   is exact here (on the CPU ``approx_max_k`` returns ``top_k``'s result),
   so the 0.99 recall target is met;
 * ``xla`` (CPU default) -- exact f32 row-blocked panels with
-  ``torch.matmul`` + ``torch.topk``; explicit only on CUDA.
+  ``torch.matmul`` + ``torch.topk``; explicit only on CUDA. Past
+  :data:`_XLA_PANEL_BYTES` of one row block's panel the columns are
+  streamed too (the JAX package's threshold), still in f32.
 
 bf16-stored inputs take the kernel's bf16 mode under every engine. On
 the CPU the kernel engines run the kernel's plain version.
@@ -34,9 +36,14 @@ import os
 
 import torch
 
+from . import knn_tile as tiled
 from .knn_tile import _candidate_width, knn_tiled
 
 _ENGINES = frozenset({"bf16", "xla", "pallas", "approx", "stream"})
+# Above this many bytes of one row block's f32 panel (row_block x N) the
+# xla engine streams column blocks (knn_tile.COL_BLOCK) with f32 panels
+# (multimodal_umap_tpu/ops/knn.py:296-316).
+_XLA_PANEL_BYTES = 4 * 1024**3
 
 
 def resolve_engine(engine: str | None = None,
@@ -75,16 +82,39 @@ def _exact_rescore_sq(q: torch.Tensor, references: torch.Tensor,
 def _knn_block(q_block: torch.Tensor, references: torch.Tensor,
                r_sq: torch.Tensor, row_offset: int, k: int,
                exclude_self: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """One row block against all references: f32 panel + top-k."""
+    """One row block against ``references``: f32 panel + top-k. Query
+    row i's self column is ``row_offset + i`` where it lies in
+    [0, N)."""
     q_sq = (q_block * q_block).sum(1, keepdim=True)
     panel = (q_sq + r_sq[None, :] - 2.0 * (q_block @ references.T)).clamp_min(0.0)
     if exclude_self:
         rows = torch.arange(q_block.shape[0], device=panel.device)
         cols = rows + row_offset
-        ok = cols < references.shape[0]
+        ok = (cols >= 0) & (cols < references.shape[0])
         panel[rows[ok], cols[ok]] = float("inf")
     d, ids = torch.topk(panel, k, dim=1, largest=False)
     return d.clamp_min(0.0).sqrt(), ids.to(torch.int32)
+
+
+def _knn_block_streamed(q_block: torch.Tensor, references: torch.Tensor,
+                        r_sq: torch.Tensor, row_offset: int, k: int,
+                        exclude_self: bool, col_block: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_knn_block` over ``col_block`` columns at a time, each
+    chunk's top-k merged into the running best (knn_stream._panel_merge
+    with f32 panels): the panel transient is row_block x col_block."""
+    best_d = best_i = None
+    for c0 in range(0, references.shape[0], col_block):
+        c1 = min(c0 + col_block, references.shape[0])
+        d, i = _knn_block(q_block, references[c0:c1], r_sq[c0:c1],
+                          row_offset - c0, min(k, c1 - c0), exclude_self)
+        i += c0
+        if best_d is not None:
+            d = torch.cat([best_d, d], 1)
+            d, sel = torch.topk(d, min(k, d.shape[1]), dim=1, largest=False)
+            i = torch.cat([best_i, i], 1).gather(1, sel)
+        best_d, best_i = d, i
+    return best_d, best_i
 
 
 def knn(
@@ -105,7 +135,9 @@ def knn(
     If either input is stored bfloat16 the call takes the kernel's bf16
     mode whatever the engine (the JAX package's bf16-stored rule): the
     tables go to the kernel without an f32 copy and the re-score is exact
-    w.r.t. the stored values.
+    w.r.t. the stored values. Reference columns are taken
+    ``knn_tile.COL_BLOCK`` at a time: per kernel launch, and per streamed
+    panel of the ``xla`` engine past :data:`_XLA_PANEL_BYTES`.
     """
     engine = resolve_engine(engine, queries.device)
     bf16_stored = torch.bfloat16 in (queries.dtype, references.dtype)
@@ -124,9 +156,15 @@ def knn(
     if k > num_r - (1 if exclude_self else 0):
         raise ValueError(f"k={k} exceeds available references ({num_r})")
     r_sq = (r * r).sum(1)
+    stream = 4 * row_block * num_r > _XLA_PANEL_BYTES
     d_parts, i_parts = [], []
     for s in range(0, num_q, row_block):
-        d, i = _knn_block(q[s:s + row_block], r, r_sq, s, k, exclude_self)
+        if stream:
+            d, i = _knn_block_streamed(q[s:s + row_block], r, r_sq, s, k,
+                                       exclude_self, tiled.COL_BLOCK)
+        else:
+            d, i = _knn_block(q[s:s + row_block], r, r_sq, s, k,
+                              exclude_self)
         d_parts.append(d)
         i_parts.append(i)
     return torch.cat(d_parts), torch.cat(i_parts)

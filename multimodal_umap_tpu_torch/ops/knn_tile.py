@@ -22,9 +22,12 @@ into the git-ignored ``build/`` directory at first use, binds it with
 * :func:`tf32_split_plain` -- the f32 mode's split of each value into a
   TF32 head and its remainder, in plain PyTorch;
 * :func:`knn_tiled` -- the ``knn_pallas`` contract around it: row blocks
-  of 8192 queries (bounding the candidate buffer), the exact cross-tile
-  merge with ``torch.topk`` and, in bf16 mode, the widened candidate set
-  re-scored exactly in f32 with the pad/self masks re-applied.
+  of 8192 queries met by the references :data:`COL_BLOCK` columns at a
+  time (``knn_streamed``'s blocking: the candidate buffers are one
+  chunk's whatever N is), the exact merge of every tile's and chunk's
+  candidates with ``torch.topk`` and, in bf16 mode, the widened
+  candidate set re-scored exactly in f32 with the pad/self masks
+  re-applied.
 
 bf16 mode ranks with single-pass bf16 products (f32 accumulation) and
 norms taken from the bf16-rounded values, so the panel is the exact
@@ -53,6 +56,10 @@ TILE_C = 256  # column tile of the kernel and of the output contract
 TILE_D = 64  # bf16 D slice of the kernel (one 128-byte TMA box row)
 TILE_D_F32 = 16  # f32 D slice (one 64-byte TMA box row)
 # D is zero-padded to a multiple of the mode's slice.
+# Reference columns per kernel launch in knn_tiled: knn_streamed's default
+# col_block (multimodal_umap_tpu/ops/knn_stream.py:304), a multiple of
+# TILE_C. Bounds the candidate buffers of a row block independently of N.
+COL_BLOCK = 32768
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = (_CSRC / "knn_tile.cu",)
@@ -198,7 +205,8 @@ def knn_tile_plain(
     distances, same-shape int32 global column ids): per ``TILE_C``-column tile
     the ``tile_k`` smallest entries, ascending, ties to the lowest
     column. Columns >= N and, with ``exclude_self``, column
-    ``row_offset + i`` for query row i are +inf.
+    ``row_offset + i`` for query row i (where it lies in [0, N)) are
+    +inf.
     """
     qf, rf = q.float(), r.float()
     nq, n = qf.shape[0], rf.shape[0]
@@ -206,9 +214,11 @@ def knn_tile_plain(
     r_sq = (rf * rf).sum(1)
     panel = ((-2.0 * (qf @ rf.T) + q_sq[:, None]) + r_sq[None, :]).clamp_min(0.0)
     if exclude_self:
+        # row_offset is negative for a column chunk that starts after the
+        # query block: those rows' self columns lie outside this r.
         rows = torch.arange(nq, device=qf.device)
         cols = rows + row_offset
-        ok = cols < n
+        ok = (cols >= 0) & (cols < n)
         panel[rows[ok], cols[ok]] = float("inf")
     nct = _num_col_tiles(n)
     pad = nct * TILE_C - n
@@ -310,7 +320,8 @@ def knn_tile(
     n = r.shape[0]
     if nq == 0:
         raise ValueError("no query rows")
-    if _num_col_tiles(n) > 65535 or max(nq, n, row_offset + nq) >= 2**31:
+    if (_num_col_tiles(n) > 65535
+            or max(nq, n, abs(row_offset) + nq) >= 2**31):
         raise ValueError(f"shape out of the kernel's range: Q={nq}, N={n}")
     bf16 = q.dtype == torch.bfloat16
     geo = launch_geometry(nq, n, d, bf16)
@@ -362,14 +373,27 @@ def knn_tiled(
     exclude_self: bool = False,
     bf16: bool = False,
     row_block: int = 8192,
+    col_block: int | None = None,
     cand: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN through the tile kernel (``knn_pallas``'s contract):
     ((Q, k) ascending Euclidean distances, (Q, k) int32 ids).
 
+    Both axes are blocked, as ``knn_streamed`` blocks them
+    (multimodal_umap_tpu/ops/knn_stream.py:133-217): each ``row_block``
+    of queries meets the references ``col_block`` columns (default
+    :data:`COL_BLOCK`) at a time, one kernel launch per chunk, and each
+    chunk's candidates merge into the block's running best, so the
+    candidate buffers are those of one (row_block, col_block) chunk
+    whatever N is. A chunk's ids are offset by its first column, and its
+    self column sits at ``row_offset = s - c0`` (negative for a chunk
+    past the block). With one chunk (N <= ``col_block``) the merge is the
+    unstreamed one, op for op.
+
     bf16: the per-tile width (:func:`bf16_tile_k`) absorbs in-tile bf16
-    misranking, the merged global top-``cand`` (default max(4k, 64))
-    absorbs cross-tile misranking; both are re-scored away in exact f32.
+    misranking, the running global top-``cand`` (default max(4k, 64))
+    absorbs cross-tile misranking; both are re-scored away in exact f32
+    once per row block. f32 mode keeps a running top-k.
 
     Inputs go to the kernel in its mode's dtype without an f32 copy: a
     bf16-stored table as it is, an f32 one cast (bf16 mode) for ranking
@@ -381,6 +405,10 @@ def knn_tiled(
     """
     from .knn import _exact_rescore_sq
 
+    col_block = COL_BLOCK if col_block is None else col_block
+    if col_block <= 0 or col_block % TILE_C:
+        raise ValueError(f"col_block={col_block} must be a positive "
+                         f"multiple of {TILE_C}")
     same = queries is references
     num_q, num_r = queries.shape[0], references.shape[0]
     if k > num_r - (1 if exclude_self else 0):
@@ -390,6 +418,7 @@ def knn_tiled(
         cand = max(4 * k, 64) if cand is None else cand
     else:
         tile_k = k
+        cand = k
     if tile_k > TILE_C:
         raise ValueError(f"k={k} exceeds the kernel's tile width {TILE_C}")
     dtype = torch.bfloat16 if bf16 else torch.float32
@@ -408,21 +437,37 @@ def knn_tiled(
     for s in range(0, num_q, row_block):
         e = min(s + row_block, num_q)
         nq = e - s
-        d_c, i_c = knn_tile(qw[s:e], rw, tile_k, exclude_self=exclude_self,
-                            row_offset=s,
-                            q_sq=None if q_sq is None else q_sq[s:e],
-                            r_sq=r_sq)
-        width = d_c.shape[0] * tile_k
-        cand_d = d_c.permute(1, 0, 2).reshape(nq, width)
-        cand_i = i_c.permute(1, 0, 2).reshape(nq, width)
-        if not bf16:
-            vals, pos = torch.topk(cand_d, k, dim=1, largest=False)
+        best_d = best_i = None
+        for c0 in range(0, num_r, col_block):
+            c1 = min(c0 + col_block, num_r)
+            # A contiguous row slice of the padded table: 16-byte aligned.
+            d_c, i_c = knn_tile(
+                qw[s:e], rw[c0:c1], tile_k, exclude_self=exclude_self,
+                row_offset=s - c0,
+                q_sq=None if q_sq is None else q_sq[s:e],
+                r_sq=None if r_sq is None else r_sq[c0:c1])
+            width = d_c.shape[0] * tile_k
+            cand_d = d_c.permute(1, 0, 2).reshape(nq, width)
+            cand_i = i_c.permute(1, 0, 2).reshape(nq, width)
+            del d_c, i_c
+            vals, pos = torch.topk(cand_d, min(cand, width), dim=1,
+                                   largest=False)
             ids = cand_i.gather(1, pos)
+            del cand_d, cand_i  # freed before the next chunk's launch
+            if c0:
+                ids += c0
+            if best_d is not None:
+                # merge into the running best, as knn_stream._merge_topk
+                vals = torch.cat([best_d, vals], 1)
+                ids = torch.cat([best_i, ids], 1)
+                vals, pos = torch.topk(vals, min(cand, vals.shape[1]),
+                                       dim=1, largest=False)
+                ids = ids.gather(1, pos)
+            best_d, best_i = vals, ids
+        if not bf16:
+            vals, ids = best_d, best_i
         else:
-            _, pos = torch.topk(cand_d, min(cand, width), dim=1,
-                                largest=False)
-            ids_c = cand_i.gather(1, pos)
-            del cand_d, cand_i, d_c, i_c  # freed before the re-score's chunks
+            ids_c = best_i
             d2 = _exact_rescore_sq(
                 queries[s:e], references, ids_c.clamp(0, num_r - 1),
                 chunk=min(rescore_chunk(ids_c.shape[1], queries.shape[1]), nq))

@@ -37,15 +37,32 @@ def _degrees(graph: EdgeGraph) -> torch.Tensor:
     return deg.index_add_(0, graph.rows.long(), w).clamp_min(1e-6)
 
 
-def _adjacency_apply(graph: EdgeGraph, w: torch.Tensor,
-                     y: torch.Tensor) -> torch.Tensor:
+# Edges per block of the Laplacian matvec (multimodal_umap_tpu/ops/
+# spectral.py:124): the (edges, B) gather transient is edges*B*4 bytes,
+# ~1.1 GB at 4M edges and B = 73, whatever N is.
+_EDGE_BLOCK = 4 * 1024 * 1024
+
+
+def _adjacency_apply(graph: EdgeGraph, w: torch.Tensor, y: torch.Tensor,
+                     edge_block: int | None = None) -> torch.Tensor:
     """A @ y by index_add_ over the edge list (``w`` zeroed where
-    invalid). The (E, B) gather is scaled in place: one edge-sized
-    transient, not two."""
+    invalid), ``edge_block`` edges at a time (default
+    :data:`_EDGE_BLOCK`), each block added into one output. A block's
+    (edges, B) gather is scaled in place: one edge-block-sized
+    transient."""
+    edge_block = _EDGE_BLOCK if edge_block is None else edge_block
     out = torch.zeros((graph.num_rows, y.shape[1]), dtype=y.dtype,
                       device=y.device)
-    return out.index_add_(0, graph.rows.long(),
-                          y[graph.cols.long()].mul_(w[:, None]))
+    for e0 in range(0, graph.num_edges, edge_block):
+        _add_edges(out, graph.rows[e0:e0 + edge_block],
+                   graph.cols[e0:e0 + edge_block], w[e0:e0 + edge_block], y)
+    return out
+
+
+def _add_edges(out: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+               w: torch.Tensor, y: torch.Tensor) -> None:
+    """out[rows] += w * y[cols], one block of edges."""
+    out.index_add_(0, rows.long(), y[cols.long()].mul_(w[:, None]))
 
 
 class _Laplacian:

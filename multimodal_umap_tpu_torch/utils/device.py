@@ -12,7 +12,9 @@ import torch
 
 def resolve_device(device: torch.device | str | None = None) -> torch.device:
     """``device`` as a ``torch.device`` (None -> "cuda"); raises when it
-    names CUDA and no GPU is present."""
+    names CUDA and no GPU is present. "cuda" without an index becomes the
+    current card's ``cuda:i``, the device its tensors report, so that a
+    tensor already there compares equal to it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -20,4 +22,6 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
             "False; pass device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -5,7 +5,12 @@
 
 ``fit`` builds the fit graphs of the chip-smoke main path (31,744
 synthetic pairs at 768 / 4096 dims, k=15, out_dim=64; ``--n_train
-131072`` for its CLI path) and profiles the fit layout. ``invert`` fits
+131072`` for its CLI path; past 131,072 the scale ladder's data: bf16
+tables drawn on the card, 256 clusters) and profiles the fit layout.
+Where the layout's memory bounds engage (the attraction's slot scan, the
+per-modality recompute: ``--n_train 524288``) the epoch is timed with
+them and with every form whole, in turns (bounded, whole, whole,
+bounded), and both are printed. ``invert`` fits
 that model (60 epochs: the invert epoch's
 cost depends on shapes, not on how well the layout converged), embeds
 1,024 held-out texts and profiles the invert layout that reconstructs
@@ -40,7 +45,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs a CUDA GPU")
     from multimodal_umap_tpu_torch import Config, MultimodalUMAP
-    from multimodal_umap_tpu_torch.data.synthetic import clustered_modalities
+    from multimodal_umap_tpu_torch.data.synthetic import (
+        clustered_modalities, clustered_modalities_device)
+    from multimodal_umap_tpu_torch.models import layout as PL
     from multimodal_umap_tpu_torch.models.layout import (
         fit_task, query_task, train_layout)
 
@@ -49,9 +56,14 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(json.dumps({"device": smi}), flush=True)
     cfg = Config()
-    data = clustered_modalities(n + 1_024, dims=(768, 4096), seed=0,
-                                centers_seed=1)
-    train = [torch.from_numpy(x[:n]).cuda() for x in data.values()]
+    if args.mode == "fit" and n > 131_072:
+        train = list(clustered_modalities_device(
+            n, (768, 4096), n_clusters=256, seed=0, centers_seed=0,
+            device="cuda", dtype=torch.bfloat16).values())
+    else:
+        data = clustered_modalities(n + 1_024, dims=(768, 4096), seed=0,
+                                    centers_seed=1)
+        train = [torch.from_numpy(x[:n]).cuda() for x in data.values()]
     model = MultimodalUMAP(cfg.k_neighbors, cfg.out_dim, cfg.min_dist, 2,
                            device="cuda")
     if args.mode == "fit":
@@ -80,14 +92,42 @@ def main() -> None:
                             alpha=cfg.alpha, batch_size=cfg.batch_size,
                             a=model.a, b=model.b)
 
-    run(2)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    run(args.epochs)
-    torch.cuda.synchronize()
-    epoch_ms = (time.perf_counter() - t0) * 1e3 / args.epochs
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    bounds = (PL._ATTR_SLOT_BYTES, PL._MODALITY_REMAT_ROWS)
+
+    def set_forms(whole):
+        PL._ATTR_SLOT_BYTES, PL._MODALITY_REMAT_ROWS = (
+            (1 << 62, 1 << 62) if whole else bounds)
+
+    def timed():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run(args.epochs)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3 / args.epochs,
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    rows = max(s.num_rows for s in statics)
+    engaged = args.mode == "fit" and (
+        rows * cfg.k_neighbors * cfg.out_dim * 4 > bounds[0]
+        or rows > bounds[1])
+    runs = {False: [], True: []}
+    for whole in (False, True) if engaged else (False,):
+        set_forms(whole)
+        run(2)  # warm-up
+    for whole in (False, True, True, False) if engaged else (False,):
+        set_forms(whole)
+        runs[whole].append(timed())
+    set_forms(False)
+    epoch_ms = sum(ms for ms, _ in runs[False]) / len(runs[False])
+    peak_gib = max(gib for _, gib in runs[False])
+    ab = {}
+    if engaged:
+        ab = {"bounded_runs_ms": [ms for ms, _ in runs[False]],
+              "whole_forms": {
+                  "epoch_ms": sum(ms for ms, _ in runs[True]) / 2,
+                  "runs_ms": [ms for ms, _ in runs[True]],
+                  "peak_mem_gib": max(gib for _, gib in runs[True])}}
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -106,6 +146,7 @@ def main() -> None:
         "mode": args.mode, "n_train": n, "epochs": args.epochs,
         "epoch_ms": epoch_ms,
         "peak_mem_gib": peak_gib,
+        **ab,
         "profiled_wall_ms": wall_us / 1e3,
         "device_busy_share": device_us / wall_us,
         "kernel_launches_per_epoch": sum(e.count for e in events) / args.epochs,

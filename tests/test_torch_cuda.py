@@ -160,8 +160,9 @@ def test_bf16_stored_knn_tiled_allocates_no_f32_table_copy():
     """A bf16-stored 262,144 x 2,048 table (1.07 GB; 2.15 GB in f32)
     through ``knn_tiled``'s bf16 mode: the call's peak allocation above
     what was live before stays below one f32 copy of the table (its own
-    transients -- 1,024-row blocks of candidates, their merge copies and
-    a re-score chunk -- are under 1 GB), and the result equals the
+    transients -- a 1,024-row block's candidates of one column chunk,
+    their merge copies and a re-score chunk -- are under 1 GB), one
+    launch per (row block, column chunk), and the result equals the
     f32-table call's up to the stored rounding (ids tie-aware)."""
     _require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -176,7 +177,8 @@ def test_bf16_stored_knn_tiled_allocates_no_f32_table_copy():
                             bf16=True, row_block=1_024)
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
-    assert KT.KNN_TILE_BF16_LAUNCHES == before + 2
+    assert KT.KNN_TILE_BF16_LAUNCHES == before + 2 * -(-262_144
+                                                       // KT.COL_BLOCK)
     f32_copy = table.numel() * 4
     assert extra < f32_copy, (extra, f32_copy)
     d_x, i_x = knn(queries.float(), table.float(), 15, exclude_self=True,
@@ -220,3 +222,39 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     x = torch.randn(10, 8, device="cuda")
     with pytest.raises(RuntimeError, match="no nvcc"):
         KT.knn_tile(x, x, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_streamed_knn_tiled_matches_xla_on_cuda(bf16):
+    """Column chunks of 512 on the card: query blocks of 256 meet chunks
+    before, at and past their self columns (negative ``row_offset``), one
+    launch per (row block, chunk); the result is the exact f32 engine's
+    (ids tie-aware)."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(1_300, 96, generator=gen, device="cuda") * 3.0
+    counter = "KNN_TILE_BF16_LAUNCHES" if bf16 else "KNN_TILE_F32_LAUNCHES"
+    before = getattr(KT, counter)
+    d_k, i_k = KT.knn_tiled(x[:700], x, 15, exclude_self=True, bf16=bf16,
+                            row_block=256, col_block=512)
+    torch.cuda.synchronize()
+    assert getattr(KT, counter) == before + 3 * 3
+    d_x, i_x = knn(x[:700], x, 15, exclude_self=True, engine="xla")
+    scale = float(2 * (x ** 2).sum(1).max())
+    _assert_tie_aware(d_k ** 2, i_k, d_x ** 2, i_x,
+                      1e-5 * (d_x ** 2 + scale))
+
+
+@pytest.mark.cuda
+def test_bf16_table_already_on_the_card_is_not_copied():
+    """``fit`` stores a bf16 table that is already on the model's card as
+    it is: the model's default device ("cuda") names the card its tensors
+    report ("cuda:0"), so no second copy of the table is made."""
+    _require_cuda()
+    from multimodal_umap_tpu_torch import MultimodalUMAP
+
+    model = MultimodalUMAP(15, 64, 0.1, 1, feature_dtype="bfloat16")
+    table = torch.randn(4_096, 768, device="cuda").bfloat16()
+    assert model.device == table.device
+    assert model._as_table(table).data_ptr() == table.data_ptr()

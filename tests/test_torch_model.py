@@ -197,7 +197,8 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "multimodal_umap_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "profile_torch.py",
               ROOT / "main_torch.py", ROOT / "compare_knn_tile.py",
-              ROOT / "spectral_null_space.py"]
+              ROOT / "spectral_null_space.py",
+              ROOT / "scale_ladder_torch.py"]
     assert len(files) > 15
     assert {"app", "nn", "utils", "models", "ops"} <= {
         p.parent.name for p in files}
