@@ -112,7 +112,25 @@ line:
    Fails on cosine < 0.9, a non-finite metric or fit loss, recon MSE not
    below the train-mean predictor's, a bounded form that did not engage,
    a gated stage at or above its gate, or a kernel never launched;
-11. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
+11. mesh_path -- the data-parallel mesh (``mesh_path_torch.py``), with
+   the launch counts set to 0 just before it: (a) in process, NCCL at
+   world size 1: ``knn_ring`` against ``knn`` on both training tables and
+   the test images (ids tie-aware, distances rtol 1e-5), the
+   destination-sharded Laplacian apply against the single-device one
+   (rel 1e-6) and its Chebyshev init's null-space columns in the exact
+   null space (principal cosines > 0.99) at the single-device block
+   energy (1 %), the sharded layout engine for 20 fit epochs against
+   ``train_layout`` on the same draws (losses rtol 1e-5, embeddings rtol
+   2e-3 / atol 2e-4, the JAX package's sharded-vs-single tolerance) and
+   its recorded collectives (one table all-gather and one reduce-scatter
+   per modality a fit epoch; the reference table gathered once per
+   transform chunk); (b) two spawned ranks on this card over
+   gloo: ``train(..., mesh=)`` -> ``similarity_test`` -> ``knn_test``
+   (k=5) -> ``embed_and_recon`` of 16 texts at full width, each tile
+   kernel launch signature of rank 0 held against its plain version and
+   timed. Fails on a disagreement, cosine < 0.99 or more than 0.005 from
+   the main path's, or a kernel the path never launched;
+12. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
    (norm pre-pass, tile kernel, candidate permute + merge ``topk``,
    exact f32 re-score), and the tile kernel at the other main-path
    shapes (D=768; the 1,024-row transform block; the invert block, the
@@ -127,14 +145,15 @@ line:
    mode's bound is the larger of its bytes and its three TF32 passes at
    the tensor cores' TF32 rate; ``bound_fma_ms`` is one f32 pass on the
    CUDA cores' FMA pipe);
-12. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
+13. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
     times of each kernel (the tile kernel's bf16 and f32 modes are its
     two entry points) at the main-path block shape -- the bf16 mode with
     its scale-path column chunk (8,192 x 32,768 at D = 4,096 and 768)
     beside it, the f32 mode with its launch on the CLI path -- and
     launches on the fit/eval path, the recon path, the f32 table path,
-    the CLI path and the scale path;
-13. last line -- ``{"ok": true, "device": {...}}``.
+    the CLI path, the scale path and both mesh parts, and the bf16 mode
+    at the mesh path's fit ring steps (8,192 x 15,872 at both D);
+14. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -291,6 +310,22 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_ms(nq, n, d, tile_k, bf16=True):
+    """The tile kernel's bound: operations at the mode's peak (bf16 tensor
+    cores, or the f32 mode's three TF32 passes) against the bytes: both
+    tables read once (plus the bf16 norms), the (col_tiles, nq, tile_k)
+    distances and ids written. Returns (ms, "operations" | "bytes")."""
+    from multimodal_umap_tpu_torch.ops.knn_tile import TILE_C
+
+    peak, size = ((H100_BF16_FLOPS, 2.0) if bf16
+                  else (H100_TF32_FLOPS / TF32_PASSES, 4.0))
+    t_ops = 2.0 * nq * n * d / peak * 1e3
+    nbytes = (size * (nq + n) * d + (4.0 * (nq + n) if bf16 else 0.0)
+              + 8.0 * -(-n // TILE_C) * nq * tile_k)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 KERNEL_FUNCTIONS = ("knn_tile_bf16_kernel", "knn_tile_f32_kernel",
@@ -1039,7 +1074,25 @@ def main() -> None:
           and scale_launches["knn_rownorm"] > 0,
           f"scale path left a kernel unlaunched: {scale_launches}")
 
-    # 11. knn_tiled's stages at the main-path block (rows [0, 8192) of the
+    # 11. the mesh path: NCCL at world size 1 in process, then two gloo
+    # ranks sharing this card (mesh_path_torch.py)
+    import mesh_path_torch as MP
+
+    torch.cuda.synchronize()
+    reset_counts(KT)
+    mline, mesh_fails, mesh_launches = MP.run(
+        train_np, test_np, dev, os.path.join(OUT_DIR, "mesh"), cosine)
+    emit(mline)
+    check(not mesh_fails, "mesh path: " + "; ".join(mesh_fails))
+    mesh_gloo = mesh_launches["gloo_two_ranks"]
+    ring_steps = [s for s in mline["gloo_two_ranks"]["signatures"]
+                  if s["mode"] == "bf16" and s["Q"] == BLOCK_ROWS
+                  and s["D"] in DIMS]
+    check(sorted(s["D"] for s in ring_steps if s["exclude_self"])
+          == sorted(DIMS), "mesh path: no fit ring step of "
+          f"{BLOCK_ROWS} rows at D = {DIMS}")
+
+    # 12. knn_tiled's stages at the main-path block (rows [0, 8192) of the
     # D=4096 fit graph, bf16), and the tile kernel at the other shapes,
     # each also held against its plain version there
     from multimodal_umap_tpu_torch.ops.knn import _exact_rescore_sq
@@ -1070,19 +1123,6 @@ def main() -> None:
         d2 = d2.masked_fill((ids_c >= N_TRAIN) | (ids_c == rows), float("inf"))
         vals, sel = torch.topk(d2, K, dim=1, largest=False)
         return vals, ids_c.gather(1, sel)
-
-    def bound_ms(nq, n, d, tile_k, bf16=True):
-        """Operations at the mode's peak (bf16 tensor cores, or the f32
-        mode's three TF32 passes) against the bytes: both tables read
-        once (plus the bf16 norms), the (col_tiles, nq, tile_k) distances
-        and ids written."""
-        peak, size = ((H100_BF16_FLOPS, 2.0) if bf16
-                      else (H100_TF32_FLOPS / TF32_PASSES, 4.0))
-        t_ops = 2.0 * nq * n * d / peak * 1e3
-        nbytes = (size * (nq + n) * d + (4.0 * (nq + n) if bf16 else 0.0)
-                  + 8.0 * -(-n // KT.TILE_C) * nq * tile_k)
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
     def bound_fma_ms(nq, n, d):
         """The f32 mode's products as one f32 pass on the CUDA cores' FMA
@@ -1181,7 +1221,7 @@ def main() -> None:
           f"scale path: no fit chunk launch of {BLOCK_ROWS} x "
           f"{KT.COL_BLOCK} at D = {DIMS}")
 
-    # 12. kernels line: the fit graph's main-path block at D=4096, bf16,
+    # 13. kernels line: the fit graph's main-path block at D=4096, bf16,
     # with its column chunk on the scale path (8,192 x COL_BLOCK, D = 4,096
     # and 768) beside it; f32 mode at the same block (phase 7 drives it
     # there), with its launch on the CLI path (the recon app's 16 x
@@ -1200,7 +1240,8 @@ def main() -> None:
                    "recon": recon_f32_launches,
                    "f32_table": table_f32_launches,
                    "cli": cli_launches["knn_tile_f32"],
-                   "scale": scale_launches["knn_tile_f32"]}
+                   "scale": scale_launches["knn_tile_f32"],
+                   "mesh_gloo": mesh_gloo["knn_tile_f32"]}
     f32_keys = ("Q", "N", "D", "tile_k", "ms", "plain_ms", "bound_ms",
                 "bound_by", "bound_fma_ms", "library_ms")
     print(json.dumps({"kernels": [{
@@ -1209,11 +1250,14 @@ def main() -> None:
         "source": "multimodal_umap_tpu_torch/csrc/knn_tile.cu",
         "replaces": "multimodal_umap_tpu/ops/knn_pallas.py:48",
         "launches": main_launches + recon_launches
-        + cli_launches["knn_tile_bf16"] + scale_launches["knn_tile_bf16"],
+        + cli_launches["knn_tile_bf16"] + scale_launches["knn_tile_bf16"]
+        + mesh_launches["nccl_world1"] + mesh_gloo["knn_tile_bf16"],
         "launches_by_path": {"fit_eval": main_launches,
                              "recon": recon_launches,
                              "cli": cli_launches["knn_tile_bf16"],
-                             "scale": scale_launches["knn_tile_bf16"]},
+                             "scale": scale_launches["knn_tile_bf16"],
+                             "mesh_nccl": mesh_launches["nccl_world1"],
+                             "mesh_gloo": mesh_gloo["knn_tile_bf16"]},
         "max_abs_err": main_block_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1223,6 +1267,13 @@ def main() -> None:
         "shape": {"Q": BLOCK_ROWS, "N": N_TRAIN, "D": DIMS[1], "tile_k": tk,
                   "mode": "bf16"},
         "at_scale_chunk": [scale_chunk[d] for d in DIMS],
+        "at_ring_step": [
+            {"max_abs_err": s["vs_plain"]["max_abs_err"],
+             **{k: s[k] for k in ("Q", "N", "D", "tile_k", "launches", "ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}}
+            for s in sorted(ring_steps, key=lambda s: (-s["D"], s["N"]))
+            if s["exclude_self"]],
     }, {
         "name": "knn_tile_f32",
         "route": "cuda",
@@ -1249,11 +1300,16 @@ def main() -> None:
         "source": "multimodal_umap_tpu_torch/csrc/knn_tile.cu",
         "replaces": "multimodal_umap_tpu/ops/knn_pallas.py:74",
         "launches": norm_launches + recon_norm_launches
-        + cli_launches["knn_rownorm"] + scale_launches["knn_rownorm"],
+        + cli_launches["knn_rownorm"] + scale_launches["knn_rownorm"]
+        + mline["nccl_world1"]["ring_norm_launches"]
+        + mesh_gloo["knn_rownorm"],
         "launches_by_path": {"fit_eval": norm_launches,
                              "recon": recon_norm_launches,
                              "cli": cli_launches["knn_rownorm"],
-                             "scale": scale_launches["knn_rownorm"]},
+                             "scale": scale_launches["knn_rownorm"],
+                             "mesh_nccl": mline["nccl_world1"][
+                                 "ring_norm_launches"],
+                             "mesh_gloo": mesh_gloo["knn_rownorm"]},
         "max_abs_err": norm_err,
         "ms": stages["norm_prepass_ms"],
         "plain_ms": cuda_ms(lambda: (KT.row_norms_sq_plain(qb),

@@ -5,15 +5,23 @@ flags, defaults, prints, ``--log_dir`` loss logs and ``metrics.json``,
 and the same 16 recon-app pairs. Differences:
 
   --device          torch device, default ``cuda`` (``cpu`` for CPU runs);
-  --mesh_devices    0 or 1: the port runs on one device (multi-GPU is
-                    ROADMAP item 12), so a larger value is refused;
+  --mesh_devices    the data-parallel mesh is one process per rank: run
+                    the script under ``torchrun`` (or any launcher that
+                    sets ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+                    ``MASTER_ADDR`` and ``MASTER_PORT``); 0 means the
+                    world size, 1 no mesh, and a value other than the
+                    world size is refused. Ranks run NCCL on
+                    ``cuda:LOCAL_RANK`` or gloo with ``--device cpu``;
+                    only rank 0 prints and writes;
 
 and there is no compile cache and no eval prewarm (PyTorch compiles
 nothing at run time). ``main(argv)`` runs in process and returns the
-fitted (or loaded) model.
+fitted (or loaded) model; under a mesh it uses a process group that is
+already initialised, or initialises one from the environment.
 
     python main_torch.py --synthetic --n_samples 2000
     python main_torch.py --synthetic --device cpu --n_samples 128 ...
+    torchrun --nproc_per_node 4 main_torch.py --mesh_devices 4 --synthetic
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import json
 import os
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from multimodal_umap_tpu_torch import Config, MultimodalUMAP
 from multimodal_umap_tpu_torch.app import crossmodal_recon
@@ -33,6 +43,7 @@ from multimodal_umap_tpu_torch.eval.validation import (
     train,
 )
 from multimodal_umap_tpu_torch.ops.knn import resolve_engine
+from multimodal_umap_tpu_torch.parallel import create_mesh
 from multimodal_umap_tpu_torch.utils.device import resolve_device
 from multimodal_umap_tpu_torch.utils.logging import write_loss_log
 
@@ -80,7 +91,8 @@ def init_parser() -> argparse.ArgumentParser:
     parser.add_argument("--n_samples", type=int, default=2000,
                         help="Synthetic dataset size")
     parser.add_argument("--mesh_devices", type=int, default=0,
-                        help="Devices (0 or 1: the port runs on one)")
+                        help="Data-parallel mesh size: the launcher's world "
+                             "size (0 = the world size, 1 = no mesh)")
     parser.add_argument("--seed", type=int, default=0, help="PRNG seed")
     parser.add_argument("--spectral", type=str, default="auto",
                         choices=["auto", "dense", "lobpcg", "chebyshev"],
@@ -109,13 +121,40 @@ def init_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _world_size() -> int:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def _mesh(size: int, device: str):
+    """The mesh of ``size`` ranks (None for 1): the initialised process
+    group, or one initialised from the launcher's environment (NCCL on
+    ``cuda:LOCAL_RANK``, gloo on the CPU)."""
+    if size == 1:
+        return None, resolve_device(device)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    dev = resolve_device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return create_mesh(size, dev), dev
+
+
 def main(argv: list[str] | None = None) -> MultimodalUMAP:
     parser = init_parser()
     args = parser.parse_args(argv)
-    if args.mesh_devices > 1:
-        parser.error(f"--mesh_devices {args.mesh_devices}: the PyTorch port "
-                     "runs on one device (multi-GPU is ROADMAP item 12)")
-    device = resolve_device(args.device)
+    world = _world_size()
+    if args.mesh_devices not in (0, world):
+        parser.error(f"--mesh_devices {args.mesh_devices}: the mesh is one "
+                     f"process per rank and the world size is {world} "
+                     "(launch that many processes, e.g. torchrun "
+                     f"--nproc_per_node {args.mesh_devices})")
+    mesh, device = _mesh(args.mesh_devices or world, args.device)
+    main_rank = mesh is None or mesh.rank == 0
     cfg = Config(
         k_neighbors=args.k_neighbors,
         out_dim=args.out_dim,
@@ -147,46 +186,52 @@ def main(argv: list[str] | None = None) -> MultimodalUMAP:
             n_test, dims=(768, 4096), seed=args.seed + 1,
             centers_seed=args.seed)
     else:
-        train_split = load_data(split="train")
-        test_split = load_data(split="test")
+        train_split = load_data(split="train", mesh=mesh)
+        test_split = load_data(split="test", mesh=mesh)
 
+    log_dir = cfg.log_dir if main_rank else None
     if args.load_pretrained == "yes":
         model = MultimodalUMAP.load_state_dict(args.save_path, device=device)
     else:
-        model = train(train_split, cfg, device=device, verbose=True)
-        write_loss_log(cfg.log_dir, "fit", model.loss_history["fit"])
+        model = train(train_split, cfg, device=device, verbose=main_rank,
+                      mesh=mesh)
+        write_loss_log(log_dir, "fit", model.loss_history["fit"])
 
     # The CLI's own steps are timed beside the model's phases.
     timer = model.timer
-    if args.save_path is not None:
+    # A model on the mesh saves collectively (rank 0 writes); a loaded
+    # one is every rank's own.
+    on_mesh = model.mesh is not None
+    if args.save_path is not None and (main_rank or on_mesh):
         with timer.phase("cli/save"):
             model.save_state_dict(args.save_path)
 
     with timer.phase("cli/similarity_test"):
         sim = similarity_test(test_split, cfg, model=model,
-                              return_values=True)
-    write_loss_log(cfg.log_dir, "transform",
+                              return_values=True, quiet=not main_rank)
+    write_loss_log(log_dir, "transform",
                    model.loss_history.get("transform", []))
     with timer.phase("cli/knn_test"):
         acc = knn_test(test_split, cfg, k=args.k_test, model=model,
-                       return_values=True)
-    if cfg.log_dir is not None:
-        os.makedirs(cfg.log_dir, exist_ok=True)
-        with open(os.path.join(cfg.log_dir, "metrics.json"), "w") as f:
+                       return_values=True, quiet=not main_rank)
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+        with open(os.path.join(log_dir, "metrics.json"), "w") as f:
             json.dump({"cosine_similarity": sim,
                        f"knn_accuracy@{args.k_test}": acc,
                        "knn_engine": resolve_engine(cfg.knn_engine, device),
                        "spectral_method": cfg.spectral_method,
-                       "mesh_devices": 1}, f, indent=2)
+                       "mesh_devices": 1 if mesh is None else mesh.size},
+                      f, indent=2)
 
-    if args.crossmodal == "yes":
+    if args.crossmodal == "yes" and (main_rank or on_mesh):
         rng = np.random.default_rng(args.seed)
         keys = list(test_split)
         indices = rng.permutation(test_split[keys[0]].shape[0])[:16]
         samples = [np.asarray(test_split[k])[indices] for k in keys]
         with timer.phase("cli/crossmodal_recon"):
             crossmodal_recon(samples, cfg, model=model)
-        write_loss_log(cfg.log_dir, "invert",
+        write_loss_log(log_dir, "invert",
                        model.loss_history.get("invert", []))
     return model
 

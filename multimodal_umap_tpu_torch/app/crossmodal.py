@@ -96,12 +96,16 @@ def crossmodal_recon(
             (without one, latents are saved instead).
 
     Returns:
-        [reconstructed latents (B, D_image)] as a numpy array.
+        [reconstructed latents (B, D_image)] as a numpy array. Under a
+        mesh every rank reconstructs; rank 0 prints, decodes and writes.
     """
     recon = embed_and_recon(model, [data[0]], [0], [1], cfg)[0].cpu().numpy()
     target = np.asarray(data[1])
 
     loss = float(np.mean((recon - target) ** 2))
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None and mesh.rank != 0:
+        return [recon]  # rank 0 decodes and writes
     print(f"Reconstruction loss from text to image: {loss:.4f}")
 
     os.makedirs(out_dir, exist_ok=True)

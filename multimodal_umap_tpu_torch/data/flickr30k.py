@@ -109,26 +109,63 @@ def load_hf_encoders(vae_name: str = _VAE_NAME,
                     encode_images=vae_image_encoder(vae))
 
 
+def _batch_placer(mesh):
+    """A function giving this rank's share of a batch's leading axis
+    (identity when ``mesh`` is None). The batch must divide the mesh
+    size: :func:`extract_features` pads its last partial batch."""
+    if mesh is None:
+        return lambda x: x
+
+    def rows(x):
+        per = len(x) // mesh.size
+        return x[mesh.rank * per:(mesh.rank + 1) * per]
+
+    return rows
+
+
+def _encode_on_mesh(encode, batch, mesh) -> np.ndarray:
+    """``encode`` of this rank's share of ``batch``, then one all-gather
+    of the features: every rank gets the whole batch's."""
+    if mesh is None:
+        return np.asarray(encode(batch))
+    from ..parallel.collectives import all_gather_tensor
+
+    part = torch.as_tensor(np.asarray(encode(_batch_placer(mesh)(batch))))
+    return all_gather_tensor(part.to(mesh.device), mesh).cpu().numpy()
+
+
 def extract_features(samples: typing.Iterable[dict], encoders: Encoders,
                      batch_size: int = 64, mesh=None) -> dict:
     """Streams samples through the encoders in fixed batches.
 
     Each sample is a dict with ``alt_text`` (list of captions; only the
     FIRST is used) and ``image`` (a PIL image or an (H, W, 3) array).
-    ``mesh`` exists for the JAX package's signature and must be None:
-    extraction runs on one device."""
-    if mesh is not None:
-        raise ValueError("extract_features runs on one device; mesh must "
-                         "be None (multi-GPU is ROADMAP item 12)")
+    With ``mesh`` (every rank streaming the same samples) each rank
+    encodes its share of a batch and one all-gather gives every rank
+    the batch's features; the last partial batch is padded up to
+    ``batch_size`` (the last sample repeated) and the padding dropped.
+    Features are unchanged: both encoders are row-wise maps."""
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch_size={batch_size} not divisible by the "
+                         f"{mesh.size}-rank mesh")
     texts, images = [], []
     batch_texts: list[str] = []
     batch_imgs: list[np.ndarray] = []
+    total = 0
 
     def flush():
+        nonlocal total
         if not batch_texts:
             return
-        texts.append(np.asarray(encoders.encode_texts(list(batch_texts))))
-        images.append(np.asarray(encoders.encode_images(np.stack(batch_imgs))))
+        total += len(batch_texts)
+        if mesh is not None and len(batch_texts) < batch_size:
+            pad = batch_size - len(batch_texts)
+            batch_texts.extend([batch_texts[-1]] * pad)
+            batch_imgs.extend([batch_imgs[-1]] * pad)
+        texts.append(_encode_on_mesh(encoders.encode_texts,
+                                     list(batch_texts), mesh))
+        images.append(_encode_on_mesh(encoders.encode_images,
+                                      np.stack(batch_imgs), mesh))
         batch_texts.clear()
         batch_imgs.clear()
 
@@ -143,17 +180,20 @@ def extract_features(samples: typing.Iterable[dict], encoders: Encoders,
     flush()
     if not texts:
         raise ValueError("no samples to extract features from")
-    return {"texts": np.concatenate(texts), "images": np.concatenate(images)}
+    return {"texts": np.concatenate(texts)[:total],
+            "images": np.concatenate(images)[:total]}
 
 
 def load_data(split: str, cache_dir: str = _CACHE_DIR, batch_size: int = 64,
               encoders: Encoders | None = None,
-              stream: typing.Iterable[dict] | None = None) -> dict:
+              stream: typing.Iterable[dict] | None = None,
+              mesh=None) -> dict:
     """Cached flickr30k features: a cache hit loads the npz; a miss
     extracts ``stream`` (samples as :func:`extract_features` takes them)
     with ``encoders`` (default :func:`load_hf_encoders`) and caches the
-    result. Without a cache and a stream, or without usable encoders,
-    raises RuntimeError naming the cache path and the synthetic data."""
+    result (``mesh``: extraction split over the ranks, rank 0 writes).
+    Without a cache and a stream, or without usable encoders, raises
+    RuntimeError naming the cache path and the synthetic data."""
     cached = load_cached(split, cache_dir)
     if cached is not None:
         return cached
@@ -170,7 +210,9 @@ def load_data(split: str, cache_dir: str = _CACHE_DIR, batch_size: int = 64,
         except (RuntimeError, FileNotFoundError) as exc:
             raise RuntimeError(f"no cached features at {path} and no "
                                f"encoders ({exc}); {hint}") from exc
-    data = extract_features(stream, encoders, batch_size=batch_size)
-    os.makedirs(cache_dir, exist_ok=True)
-    np.savez(path, **data)
+    data = extract_features(stream, encoders, batch_size=batch_size,
+                            mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(cache_dir, exist_ok=True)
+        np.savez(path, **data)
     return data

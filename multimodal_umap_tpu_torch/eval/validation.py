@@ -5,6 +5,10 @@ Counterpart of ``multimodal_umap_tpu/eval/validation.py``. As in the
 reference, both metrics *re-embed* their inputs with a full transform
 optimization (``knn_test`` once per modality pair), so embeddings are
 stochastic and parity is statistical.
+
+Under a mesh (``train(..., mesh=)``) every rank calls these with the same
+arguments; ``transform`` returns whole results on every rank, so the
+metrics are the single-device values on every rank.
 """
 
 from __future__ import annotations
@@ -18,16 +22,17 @@ from ..ops.knn import knn
 
 
 def train(data: dict, cfg: Config, device: torch.device | str | None = None,
-          verbose: bool = False) -> MultimodalUMAP:
+          verbose: bool = False, mesh=None) -> MultimodalUMAP:
     """Trains a multimodal UMAP model on a data dict, with the storage
     dtype (``feature_dtype``) and the snapshot options of ``cfg``
-    (``progress_path``, ``resume``, ``graph_cache_path``)."""
+    (``progress_path``, ``resume``, ``graph_cache_path``); ``mesh`` (a
+    ``parallel.Mesh``) shards it over the ranks."""
     tensors = [data[key] for key in data]
     model = MultimodalUMAP(
         k_neighbors=cfg.k_neighbors, out_dim=cfg.out_dim,
         min_dist=cfg.min_dist, num_encoders=len(tensors), seed=cfg.seed,
         spectral_method=cfg.spectral_method, knn_engine=cfg.knn_engine,
-        device=device, feature_dtype=cfg.feature_dtype,
+        device=device, feature_dtype=cfg.feature_dtype, mesh=mesh,
     )
     model.fit(tensors, epochs=cfg.train_epochs, num_rep=cfg.num_rep,
               lr=cfg.lr, alpha=cfg.alpha, batch_size=cfg.batch_size,

@@ -11,6 +11,15 @@ device):
   * ``invert_graph`` -- query-vs-train graph in latent space with
     output-curve weights, initialized by the affinity-weighted average of
     the training data rows (the JAX package's fixed invert semantics).
+
+Under a mesh (``mesh=``, more than one rank) every mode takes this
+rank's row shards of its tables and returns this rank's rows: the kNN
+rides the ring (ops/knn_stream.py), so no rank holds a feature table,
+and the init's reference rows are fetched by ring too
+(``layout_sharded._ring_rows``). The fit graph's (N, k) kNN results are
+all-gathered and symmetrized whole on every rank (the reverse-edge
+lookup needs every row), and the spectral init runs on the
+destination-sharded graph.
 """
 
 from __future__ import annotations
@@ -31,6 +40,33 @@ from ..ops.graph import (
 )
 from ..ops.knn import knn, resolve_engine
 from ..ops.spectral import spectral_embedding
+from ..parallel.collectives import all_gather_tensor
+
+
+def _ring_ok(mesh, num_refs: int) -> bool:
+    """The ring path needs more than one rank and the reference rows
+    divisible by the mesh size (queries are padded; a reference table is
+    not -- an indivisible one stays whole on every rank)."""
+    return mesh is not None and mesh.size > 1 and num_refs % mesh.size == 0
+
+
+def _ring_knn(q_shard, r_shard, k, mesh, *, exclude_self, engine):
+    """Ring kNN of this rank's (padded) query rows; the caller pads the
+    queries to a mesh multiple and slices the padded rows off."""
+    from ..ops.knn_stream import knn_ring_shards
+
+    return knn_ring_shards(q_shard, r_shard, k, mesh,
+                           exclude_self=exclude_self,
+                           bf16=engine in ("bf16", "stream"))
+
+
+def _ring_embed_query(nbrs, weights, ref_shard, mesh) -> torch.Tensor:
+    """``embed_query`` with the reference rows fetched by ring."""
+    from .layout_sharded import _ring_rows
+
+    rows = _ring_rows(ref_shard, nbrs, mesh)  # (Q, k, D)
+    slots = torch.arange(nbrs.numel(), device=nbrs.device).view(nbrs.shape)
+    return embed_query(slots, weights, rows.reshape(-1, rows.shape[-1]))
 
 
 @dataclasses.dataclass
@@ -54,14 +90,22 @@ class ModalityEncoder:
     spectral_method: str = "auto"
     knn_engine: str | None = None
 
-    def fit_graph(self, features: torch.Tensor
+    def fit_graph(self, features: torch.Tensor, mesh=None
                   ) -> tuple[EdgeGraph, DenseSymGraph, torch.Tensor]:
         """The symmetric fuzzy graph (edge list for spectral, dense view
         for the layout engine; both from one reverse-edge lookup) and its
-        spectral embedding."""
+        spectral embedding. Under a mesh ``features`` are this rank's
+        rows and the results are whole on every rank."""
         engine = resolve_engine(self.knn_engine, features.device)
-        dists, nbrs = knn(features, features, self.k_neighbors,
-                          exclude_self=True, engine=engine)
+        ring = mesh is not None and mesh.size > 1
+        if ring:
+            dists, nbrs = _ring_knn(features, features, self.k_neighbors,
+                                    mesh, exclude_self=True, engine=engine)
+            dists = all_gather_tensor(dists, mesh)
+            nbrs = all_gather_tensor(nbrs, mesh)
+        else:
+            dists, nbrs = knn(features, features, self.k_neighbors,
+                              exclude_self=True, engine=engine)
         weights, rhos, sigmas = fuzzy_weights(dists)
         rev = _reverse_edge_weights(nbrs, weights)
         graph = symmetrize(nbrs, weights, rev)
@@ -69,15 +113,24 @@ class ModalityEncoder:
         self.sigmas = sigmas
         self.rhos = rhos
         embed = spectral_embedding(graph, self.out_dim,
-                                   method=self.spectral_method)
+                                   method=self.spectral_method,
+                                   mesh=mesh if ring else None)
         return graph, dense, embed
 
     def transform_graph(self, query: torch.Tensor,
                         train_features: torch.Tensor,
-                        train_embeds: torch.Tensor
+                        train_embeds: torch.Tensor, mesh=None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Query-to-train (nbrs, weights) + weighted-average init."""
+        """Query-to-train (nbrs, weights) + weighted-average init. Under
+        a mesh every table is this rank's rows (queries padded to a mesh
+        multiple)."""
         engine = resolve_engine(self.knn_engine, query.device)
+        if mesh is not None and mesh.size > 1:
+            dists, nbrs = _ring_knn(query, train_features, self.k_neighbors,
+                                    mesh, exclude_self=False, engine=engine)
+            weights, _, _ = fuzzy_weights(dists)
+            return nbrs, weights, _ring_embed_query(nbrs, weights,
+                                                    train_embeds, mesh)
         dists, nbrs = knn(query, train_features, self.k_neighbors,
                           engine=engine)
         weights, _, _ = fuzzy_weights(dists)
@@ -85,10 +138,18 @@ class ModalityEncoder:
 
     def invert_graph(self, query_embeds: torch.Tensor,
                      train_embeds: torch.Tensor, train_data: torch.Tensor,
-                     a: float, b: float
+                     a: float, b: float, mesh=None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Latent-space (nbrs, weights) + data-space initialization."""
+        """Latent-space (nbrs, weights) + data-space initialization. Under
+        a mesh every table is this rank's rows."""
         engine = resolve_engine(self.knn_engine, query_embeds.device)
+        if mesh is not None and mesh.size > 1:
+            dists, nbrs = _ring_knn(query_embeds, train_embeds,
+                                    self.k_neighbors, mesh,
+                                    exclude_self=False, engine=engine)
+            weights = curve_weights(dists, a, b)
+            return nbrs, weights, _ring_embed_query(nbrs, weights,
+                                                    train_data, mesh)
         dists, nbrs = knn(query_embeds, train_embeds, self.k_neighbors,
                           engine=engine)
         weights = curve_weights(dists, a, b)

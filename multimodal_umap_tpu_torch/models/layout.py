@@ -82,14 +82,19 @@ def fit_task(dense: DenseSymGraph, batch_size: int
 
 def query_task(nbrs: torch.Tensor, weights: torch.Tensor, batch_size: int,
                ref: torch.Tensor, sigmas: torch.Tensor | None = None,
-               rhos: torch.Tensor | None = None
+               rhos: torch.Tensor | None = None, num_rows: int | None = None,
+               rep_count: int | None = None
                ) -> tuple[LayoutTask, TaskStatic]:
-    q = nbrs.shape[0]
+    """``num_rows`` / ``rep_count`` (default: the rows of ``nbrs`` /
+    ``ref``) are the whole query and reference counts when a mesh rank
+    passes its shards."""
+    q = nbrs.shape[0] if num_rows is None else num_rows
     return (
         LayoutTask(nbrs=nbrs.long(), weights=weights.float(),
                    bwd_valid=None, ref=ref, sigmas=sigmas, rhos=rhos),
         TaskStatic(num_rows=q, num_windows=max(1, -(-q // batch_size)),
-                   rep_count=int(ref.shape[0])),
+                   rep_count=int(ref.shape[0] if rep_count is None
+                                 else rep_count)),
     )
 
 
@@ -441,6 +446,7 @@ def train_layout(
     chunk_callback=None,
     start_epoch: int = 0,
     init_opt_state: AdamState | None = None,
+    mesh=None,
 ) -> tuple[list[torch.Tensor], torch.Tensor]:
     """Full-batch Adam layout optimization, one step per epoch.
 
@@ -454,6 +460,13 @@ def train_layout(
     ``start_epoch``/``init_opt_state`` resume a run: the draws of epoch
     e depend on (seed, e) only, so a resumed run replays exactly the
     epochs the original would have run.
+
+    ``mesh`` with more than one rank, with tasks and inits holding this
+    rank's rows (``layout_sharded.sharded_compatible``), takes the
+    sharded engine (``layout_sharded.sharded_chunk_runner``): in query
+    modes it keeps the reference tables sharded and fetches their rows by
+    ring once a table is over ``MMUMAP_REF_GATHER_BYTES`` (default 1
+    GiB) whole. Anything else runs the single-device loop (on every rank).
 
     Returns (final embeddings per modality, (epochs - start_epoch,) f32
     loss history on the CPU).
@@ -473,6 +486,21 @@ def train_layout(
     loss_fn = make_loss_fn(statics, mode=mode, num_rep=num_rep, alpha=alpha,
                            batch_size=batch_size)
     tasks = tuple(tasks)
+    sharded = None
+    if mesh is not None and mesh.size > 1:
+        from .layout_sharded import sharded_chunk_runner, sharded_compatible
+
+        if sharded_compatible(params, tasks, statics, mesh):
+            ref_gather = "full"
+            thresh = float(os.environ.get("MMUMAP_REF_GATHER_BYTES", 1 << 30))
+            if mode != "fit" and any(
+                    t.ref is not None
+                    and t.ref.numel() * t.ref.element_size() * mesh.size
+                    > thresh for t in tasks):
+                ref_gather = "ring"
+            sharded = sharded_chunk_runner(
+                tuple(statics), mode, num_rep, alpha, batch_size, mesh,
+                ref_gather)
     if draws is None:
         def draws(epoch):
             return draw_epoch(epoch_rng(seed, epoch, device), tasks, statics,
@@ -482,13 +510,16 @@ def train_layout(
     done = start_epoch
     while done < epochs:
         take = min(epoch_chunk, epochs - done)
-        hist = torch.empty(take, dtype=torch.float32, device=device)
-        for t in range(take):
-            optimizer.zero_grad(set_to_none=True)
-            loss = loss_fn(params, tasks, a, b, draws(done + t))
-            loss.backward()
-            optimizer.step()
-            hist[t] = loss.detach()
+        if sharded is not None:
+            hist = sharded(params, optimizer, tasks, a, b, draws, done, take)
+        else:
+            hist = torch.empty(take, dtype=torch.float32, device=device)
+            for t in range(take):
+                optimizer.zero_grad(set_to_none=True)
+                loss = loss_fn(params, tasks, a, b, draws(done + t))
+                loss.backward()
+                optimizer.step()
+                hist[t] = loss.detach()
         done += take
         history.append(hist)
         if chunk_callback is not None:

@@ -14,6 +14,17 @@ Every tensor lives on ``device`` (default CUDA; without a GPU that
 raises unless the caller passes ``device="cpu"``). The training feature
 tables are stored in ``feature_dtype`` (float32 or bfloat16); graph,
 sigma, spectral and layout math stays float32.
+
+``mesh=`` (``parallel.create_mesh``; one process per rank, every rank
+making the same calls with the same host arrays) shards the model over
+the ranks when every fit table's rows divide the mesh size: ``data`` and
+``embeds`` then hold this rank's rows, the graphs and bandwidths are
+whole on every rank, the kNN rides the ring and the layout runs the
+sharded engine. Queries are padded to a mesh multiple (padded rows'
+weights zeroed) and ``transform`` / ``inverse_transform`` return the
+whole result on every rank. A table whose rows do not divide keeps the
+whole model on every rank (the JAX plan's replication fallback), each
+rank running the single-device path. Only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -25,11 +36,19 @@ import numpy as np
 import torch
 
 from ..ops.graph import EdgeGraph
+from ..ops.knn_stream import pad_rows_to_multiple
+from ..parallel.collectives import (
+    all_gather_tensor,
+    barrier,
+    gather_rows,
+    psum,
+)
+from ..parallel.mesh import ShardingPlan, shard_task
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.prof import PhaseTimer
 from .curve import get_ab_coeffs as _get_ab_coeffs
-from .encoder import ModalityEncoder
+from .encoder import ModalityEncoder, _ring_ok
 from .layout import AdamState, adam_state, fit_task, query_task, train_layout
 
 _STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -47,7 +66,7 @@ def _npz_path(path: str | None) -> str | None:
 
 
 def _progress_callback(label: str, epochs: int, progress_path: str | None,
-                       verbose: bool):
+                       verbose: bool, mesh=None, sharded: bool = False):
     """Chunk-boundary callback: loss readout and a snapshot of the
     optimizer state (parameters, Adam moments, epoch), so a preempted
     run loses at most one snapshot interval. Shared by fit, transform
@@ -59,23 +78,39 @@ def _progress_callback(label: str, epochs: int, progress_path: str | None,
     one is durable before the call returns. Keys are the JAX package's:
     ``epoch``, ``embeds_{m}`` and ``opt_{i}`` in optax's leaf order
     (count, then mu and nu per modality).
+
+    Under a mesh only rank 0 prints and writes; ``sharded`` parameters
+    are gathered to it first, after the ranks agree (one all-reduce) on
+    whether this chunk saves.
     """
     if progress_path is None and not verbose:
         return None
     interval = float(os.environ.get("MMUMAP_SNAPSHOT_INTERVAL_S", 120.0))
     last_save = [float("-inf")]
+    writer = mesh is None or mesh.rank == 0
 
     def callback(done, params, optimizer, hist):
-        if verbose:
+        if verbose and writer:
             print(f"{label} {done}/{epochs}  loss {float(hist[-1]):.4f}",
                   flush=True)
         if progress_path is None:
             return
         now = time.monotonic()
-        if done < epochs and now - last_save[0] < interval:
+        save = done >= epochs or now - last_save[0] >= interval
+        if sharded:
+            flag = torch.tensor([float(save)], device=mesh.device)
+            save = bool(psum(flag, mesh, op=torch.distributed.ReduceOp.MAX))
+        if not save:
             return
         last_save[0] = now
         state = adam_state(optimizer, params)
+        if sharded:
+            params = [gather_rows(p, mesh) for p in params]
+            state = AdamState(state.count,
+                              [gather_rows(v, mesh) for v in state.mu],
+                              [gather_rows(v, mesh) for v in state.nu])
+        if not writer:
+            return
         leaves = [np.int32(state.count), *state.mu, *state.nu]
         arrays = {"epoch": np.int64(done)}
         arrays.update({f"embeds_{m}": p for m, p in enumerate(params)})
@@ -86,9 +121,11 @@ def _progress_callback(label: str, epochs: int, progress_path: str | None,
 
 
 def _load_progress(progress_path: str | None, resume: bool, num_modes: int,
-                   device: torch.device):
+                   device: torch.device, plan: ShardingPlan | None = None):
     """Restores a :func:`_progress_callback` snapshot: ``(start_epoch,
-    params or None, AdamState or None)``. No snapshot: a fresh start."""
+    params or None, AdamState or None)``. No snapshot: a fresh start.
+    With a ``plan`` (a sharded model) parameters and moments are cut to
+    this rank's rows."""
     if not resume:
         return 0, None, None
     if progress_path is None:
@@ -97,6 +134,8 @@ def _load_progress(progress_path: str | None, resume: bool, num_modes: int,
         return 0, None, None
     with np.load(progress_path, allow_pickle=False) as snap:
         def t(key):
+            if plan is not None:
+                return plan.shard(snap[key]).float()
             return torch.as_tensor(snap[key], dtype=torch.float32,
                                    device=device)
 
@@ -132,6 +171,7 @@ class MultimodalUMAP:
         knn_engine: str | None = None,
         device: torch.device | str | None = None,
         feature_dtype: str = "float32",
+        mesh=None,
     ):
         if num_encoders < 1:
             raise ValueError(f"num_encoders must be >= 1, got {num_encoders}")
@@ -142,7 +182,15 @@ class MultimodalUMAP:
             raise ValueError(f"feature_dtype must be float32 or bfloat16, "
                              f"got {feature_dtype!r}")
         self.feature_dtype = feature_dtype
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"device {self.device} is not the mesh rank's "
+                             f"{mesh.device}")
+        # Optional parallel.Mesh; fit decides whether the model shards.
+        self.mesh = mesh
+        self.sharded = False
         self.k_neighbors = k_neighbors
         self.out_dim = out_dim
         self.min_dist = min_dist
@@ -202,15 +250,24 @@ class MultimodalUMAP:
         (fingerprint), k, out_dim and spectral method loads them instead
         of rebuilding.
         """
-        data = [self._as_table(x) for x in inputs]
-        if len(data) != self.num_encoders:
+        if len(inputs) != self.num_encoders:
             raise ValueError(
-                f"expected {self.num_encoders} modalities, got {len(data)}")
+                f"expected {self.num_encoders} modalities, got {len(inputs)}")
+        # Shard only when every table divides: the layout's modalities
+        # then share one placement.
+        self.sharded = all(_ring_ok(self.mesh, x.shape[0]) for x in inputs)
+        plan = self._plan()
+        mesh = self.mesh if self.sharded else None
+        data = [self._as_table(self._my_rows(x)) for x in inputs]
         self.data = data
         progress_path = _npz_path(progress_path)
         cached = None
         if graph_cache_path is not None:
-            fingerprints = [ckpt.feature_fingerprint(x) for x in data]
+            # Of the whole tables in their storage dtype, on every rank.
+            fingerprints = (
+                [ckpt.feature_fingerprint(x, _STORAGE[self.feature_dtype])
+                 for x in inputs] if self.sharded
+                else [ckpt.feature_fingerprint(x) for x in data])
             cached = ckpt.load_graph_cache(
                 graph_cache_path, k_neighbors=self.k_neighbors,
                 out_dim=self.out_dim, spectral_method=self.spectral_method,
@@ -225,11 +282,11 @@ class MultimodalUMAP:
             graphs, denses, inits = [], [], []
             for i, (enc, feats) in enumerate(zip(self.encoders, data)):
                 with self.timer.phase(f"fit/graph_{i}"):
-                    graph, dense, init = enc.fit_graph(feats)
+                    graph, dense, init = enc.fit_graph(feats, mesh=mesh)
                 graphs.append(graph)
                 denses.append(dense)
                 inits.append(init)
-            if graph_cache_path is not None:
+            if graph_cache_path is not None and self._writes():
                 with self.timer.phase("fit/graph_cache_save"):
                     ckpt.save_graph_cache(
                         graph_cache_path, k_neighbors=self.k_neighbors,
@@ -239,19 +296,26 @@ class MultimodalUMAP:
                         sigmas=[e.sigmas for e in self.encoders],
                         rhos=[e.rhos for e in self.encoders],
                         fingerprints=fingerprints)
+            if graph_cache_path is not None and self.mesh is not None:
+                barrier(self.mesh)  # the cache is whole before anyone reads
         self.graphs = graphs
         tasks, statics = zip(*(fit_task(d, batch_size) for d in denses))
+        if self.sharded:
+            tasks, inits = zip(*(shard_task(plan, t, e)
+                                 for t, e in zip(tasks, inits)))
         start_epoch, snap_inits, opt_state = _load_progress(
-            progress_path, resume, self.num_encoders, self.device)
+            progress_path, resume, self.num_encoders, self.device,
+            plan if self.sharded else None)
 
         with self.timer.phase("fit/layout"):
             embeds, hist = train_layout(
-                snap_inits or inits, tasks, statics, mode="fit",
+                snap_inits or list(inits), tasks, statics, mode="fit",
                 epochs=epochs, num_rep=num_rep, lr=lr, alpha=alpha,
                 batch_size=batch_size, a=self.a, b=self.b, seed=self.seed,
-                chunk_callback=_progress_callback("epoch", epochs,
-                                                  progress_path, verbose),
+                chunk_callback=self._callback("epoch", epochs,
+                                              progress_path, verbose),
                 start_epoch=start_epoch, init_opt_state=opt_state,
+                mesh=mesh,
             )
         self.embeds = embeds
         self.loss_history["fit"] = hist.numpy()
@@ -259,8 +323,11 @@ class MultimodalUMAP:
     def fit_transform(self, inputs, epochs: int, num_rep: int = 8,
                       lr: float = 0.2, alpha: float = 0.5,
                       batch_size: int = 512) -> list[torch.Tensor]:
-        """Fits and returns the training embeddings."""
+        """Fits and returns the training embeddings (whole on every rank
+        of a sharded model)."""
         self.fit(inputs, epochs, num_rep, lr, alpha, batch_size)
+        if self.sharded:
+            return [all_gather_tensor(e, self.mesh) for e in self.embeds]
         return self.embeds
 
     def transform(self, inputs, epochs: int,
@@ -274,18 +341,24 @@ class MultimodalUMAP:
         and optimized with the references frozen. ``progress_path`` /
         ``resume`` as in :meth:`fit`."""
         queries, indices = self._queries(inputs, data_indices)
-        tasks, statics, inits = [], [], []
+        tasks, statics, inits, true_rows = [], [], [], []
+        mesh = self.mesh if self.sharded else None
         with self.timer.phase("transform/graph"):
             for q, idx in zip(queries, indices):
+                q, n_q = self._pad_query(q)
                 nbrs, weights, init = self.encoders[idx].transform_graph(
-                    q, self.data[idx], self.embeds[idx])
-                task, static = query_task(nbrs, weights, batch_size,
-                                          ref=self.embeds[idx])
+                    self._my_rows(q), self.data[idx], self.embeds[idx],
+                    mesh=mesh)
+                task, static = query_task(
+                    nbrs, self._mask_padded(weights, n_q), batch_size,
+                    ref=self.embeds[idx], num_rows=q.shape[0],
+                    rep_count=self._rows(idx))
                 tasks.append(task)
                 statics.append(static)
                 inits.append(init)
+                true_rows.append(n_q)
         return self._query_layout(
-            "transform", tasks, statics, inits, epochs=epochs,
+            "transform", tasks, statics, inits, true_rows, epochs=epochs,
             num_rep=num_rep, lr=lr, alpha=alpha, batch_size=batch_size,
             progress_path=progress_path, resume=resume, verbose=verbose,
             seed=self.seed + 1)
@@ -304,21 +377,26 @@ class MultimodalUMAP:
         with the inverse attract/repel losses against the stored
         features. ``progress_path`` / ``resume`` as in :meth:`fit`."""
         queries, indices = self._queries(inputs, data_indices)
-        tasks, statics, inits = [], [], []
+        tasks, statics, inits, true_rows = [], [], [], []
+        mesh = self.mesh if self.sharded else None
         with self.timer.phase("invert/graph"):
             for z, idx in zip(queries, indices):
                 enc = self.encoders[idx]
+                z, n_q = self._pad_query(z)
                 nbrs, weights, init = enc.invert_graph(
-                    z, self.embeds[idx], self.data[idx], self.a, self.b)
-                task, static = query_task(nbrs, weights, batch_size,
-                                          ref=self.data[idx],
-                                          sigmas=enc.sigmas, rhos=enc.rhos)
+                    self._my_rows(z), self.embeds[idx], self.data[idx],
+                    self.a, self.b, mesh=mesh)
+                task, static = query_task(
+                    nbrs, self._mask_padded(weights, n_q), batch_size,
+                    ref=self.data[idx], sigmas=enc.sigmas, rhos=enc.rhos,
+                    num_rows=z.shape[0], rep_count=self._rows(idx))
                 tasks.append(task)
                 statics.append(static)
                 inits.append(init)
+                true_rows.append(n_q)
         return self._query_layout(
-            "invert", tasks, statics, inits, epochs=epochs, num_rep=num_rep,
-            lr=lr, alpha=alpha, batch_size=batch_size,
+            "invert", tasks, statics, inits, true_rows, epochs=epochs,
+            num_rep=num_rep, lr=lr, alpha=alpha, batch_size=batch_size,
             progress_path=progress_path, resume=resume, verbose=verbose,
             seed=self.seed + 2)
 
@@ -334,25 +412,72 @@ class MultimodalUMAP:
             raise ValueError("inputs and data_indices length mismatch")
         return queries, indices
 
-    def _query_layout(self, mode: str, tasks, statics, inits, *, epochs,
-                      num_rep, lr, alpha, batch_size, progress_path, resume,
-                      verbose, seed) -> list[torch.Tensor]:
+    def _query_layout(self, mode: str, tasks, statics, inits, true_rows, *,
+                      epochs, num_rep, lr, alpha, batch_size, progress_path,
+                      resume, verbose, seed) -> list[torch.Tensor]:
         """The frozen-reference layout of transform / invert, with its
-        snapshots, resume and ``loss_history[mode]``."""
+        snapshots, resume and ``loss_history[mode]``; the results are
+        whole (gathered on a sharded model) and cut to ``true_rows``."""
         progress_path = _npz_path(progress_path)
         start_epoch, snap_inits, opt_state = _load_progress(
-            progress_path, resume, len(inits), self.device)
+            progress_path, resume, len(inits), self.device,
+            self._plan() if self.sharded else None)
         with self.timer.phase(f"{mode}/layout"):
             embeds, hist = train_layout(
                 snap_inits or inits, tasks, statics, mode=mode,
                 epochs=epochs, num_rep=num_rep, lr=lr, alpha=alpha,
                 batch_size=batch_size, a=self.a, b=self.b, seed=seed,
-                chunk_callback=_progress_callback(f"{mode} epoch", epochs,
-                                                  progress_path, verbose),
+                chunk_callback=self._callback(f"{mode} epoch", epochs,
+                                              progress_path, verbose),
                 start_epoch=start_epoch, init_opt_state=opt_state,
+                mesh=self.mesh if self.sharded else None,
             )
         self.loss_history[mode] = hist.numpy()
-        return embeds
+        if self.sharded:
+            embeds = [all_gather_tensor(e, self.mesh) for e in embeds]
+        return [e[:n] for e, n in zip(embeds, true_rows)]
+
+    def _callback(self, label: str, epochs: int, progress_path, verbose):
+        return _progress_callback(label, epochs, progress_path, verbose,
+                                  self.mesh, self.sharded)
+
+    def _plan(self) -> ShardingPlan | None:
+        return ShardingPlan(self.mesh) if self.mesh is not None else None
+
+    def _writes(self) -> bool:
+        """Whether this process writes files (rank 0 under a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _my_rows(self, x):
+        """This rank's rows of ``x`` on a sharded model (host rows stay
+        on the host), else ``x``."""
+        if not self.sharded:
+            return x
+        lo, hi = self._plan().row_range(x.shape[0])
+        return x[lo:hi]
+
+    def _rows(self, i: int) -> int:
+        """Whole row count of fit table ``i``."""
+        return self.data[i].shape[0] * (self.mesh.size if self.sharded
+                                        else 1)
+
+    def _pad_query(self, q: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """Query rows padded with zero rows to a mesh-size multiple on a
+        sharded model; (padded queries, true row count)."""
+        if not self.sharded:
+            return q, q.shape[0]
+        return pad_rows_to_multiple(q, self.mesh.size)
+
+    def _mask_padded(self, weights: torch.Tensor, n_q: int) -> torch.Tensor:
+        """Zeroes padded query rows' edge weights (this rank's rows): their
+        Bernoulli keeps never fire, so they add neither loss terms nor
+        kept-entry counts to the window means."""
+        if not self.sharded:
+            return weights
+        row0 = self.mesh.rank * weights.shape[0]
+        rows = torch.arange(row0, row0 + weights.shape[0],
+                            device=weights.device)[:, None]
+        return torch.where(rows < n_q, weights, 0.0)
 
     @staticmethod
     def get_ab_coeffs(min_dist: float, num_iters: int = 50):
@@ -362,18 +487,26 @@ class MultimodalUMAP:
     def save_state_dict(self, path: str) -> None:
         """Saves the full model state (hyperparameters, (a, b), sigmas,
         rhos, training data, graphs and embeddings) as the JAX package's
-        npz schema (utils/checkpoint.py)."""
+        npz schema (utils/checkpoint.py). A sharded model gathers its rows
+        to rank 0, which writes; the other ranks wait for it."""
         self._require_fitted()
-        ckpt.save_state(path, {
-            "k_neighbors": self.k_neighbors, "out_dim": self.out_dim,
-            "min_dist": self.min_dist, "num_encoders": self.num_encoders,
-            "a": self.a, "b": self.b,
-            "spectral_method": self.spectral_method,
-            "knn_engine": self.knn_engine,
-            "sigmas": [e.sigmas for e in self.encoders],
-            "rhos": [e.rhos for e in self.encoders],
-            "data": self.data, "graphs": self.graphs, "embeds": self.embeds,
-        })
+        data, embeds = self.data, self.embeds
+        if self.sharded:
+            data = [gather_rows(x, self.mesh) for x in data]
+            embeds = [gather_rows(x, self.mesh) for x in embeds]
+        if self._writes():
+            ckpt.save_state(path, {
+                "k_neighbors": self.k_neighbors, "out_dim": self.out_dim,
+                "min_dist": self.min_dist, "num_encoders": self.num_encoders,
+                "a": self.a, "b": self.b,
+                "spectral_method": self.spectral_method,
+                "knn_engine": self.knn_engine,
+                "sigmas": [e.sigmas for e in self.encoders],
+                "rhos": [e.rhos for e in self.encoders],
+                "data": data, "graphs": self.graphs, "embeds": embeds,
+            })
+        if self.mesh is not None:
+            barrier(self.mesh)
 
     save = save_state_dict
 

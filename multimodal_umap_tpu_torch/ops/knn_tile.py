@@ -375,6 +375,7 @@ def knn_tiled(
     row_block: int = 8192,
     col_block: int | None = None,
     cand: int | None = None,
+    row_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN through the tile kernel (``knn_pallas``'s contract):
     ((Q, k) ascending Euclidean distances, (Q, k) int32 ids).
@@ -386,9 +387,11 @@ def knn_tiled(
     chunk's candidates merge into the block's running best, so the
     candidate buffers are those of one (row_block, col_block) chunk
     whatever N is. A chunk's ids are offset by its first column, and its
-    self column sits at ``row_offset = s - c0`` (negative for a chunk
-    past the block). With one chunk (N <= ``col_block``) the merge is the
-    unstreamed one, op for op.
+    self column sits at ``row_offset + s - c0`` (negative for a chunk
+    past the block). ``row_offset`` is query row 0's self column among
+    ``references`` (0 in fit; a ring step's shard pair sets it). With
+    one chunk (N <= ``col_block``) the merge is the unstreamed one, op
+    for op.
 
     bf16: the per-tile width (:func:`bf16_tile_k`) absorbs in-tile bf16
     misranking, the running global top-``cand`` (default max(4k, 64))
@@ -443,7 +446,7 @@ def knn_tiled(
             # A contiguous row slice of the padded table: 16-byte aligned.
             d_c, i_c = knn_tile(
                 qw[s:e], rw[c0:c1], tile_k, exclude_self=exclude_self,
-                row_offset=s - c0,
+                row_offset=row_offset + s - c0,
                 q_sq=None if q_sq is None else q_sq[s:e],
                 r_sq=None if r_sq is None else r_sq[c0:c1])
             width = d_c.shape[0] * tile_k
@@ -476,7 +479,8 @@ def knn_tiled(
             # distances from ids, so the masks are re-applied here.
             invalid = ids_c >= num_r
             if exclude_self:
-                rows = torch.arange(s, e, device=ids_c.device)[:, None]
+                rows = torch.arange(s + row_offset, e + row_offset,
+                                    device=ids_c.device)[:, None]
                 invalid |= ids_c == rows
             d2 = d2.masked_fill(invalid, float("inf"))
             vals, sel = torch.topk(d2, k, dim=1, largest=False)

@@ -18,17 +18,65 @@ The start blocks are seeded (``torch.Generator`` seed 42); the JAX
 package's PRNGKey(42) blocks cannot be reproduced, so results agree as
 subspaces (principal angles), not element-wise. ``lobpcg`` takes its
 start block as an input (``x0``), so a test can hand it JAX's.
+
+Under a mesh (``spectral_embedding(..., mesh=)``) the Chebyshev filter
+runs on a :class:`DestShardedGraph`: each rank keeps the edges whose
+destination row it owns, so an apply is a local ``index_add_`` over its
+rows plus ONE all-gather of the (N, m) block; QR and Rayleigh-Ritz run
+on the gathered block, the same arithmetic on every rank.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from ..parallel.collectives import all_gather_tensor
 from .graph import EdgeGraph, to_dense
 
 _EPS_SHIFT = 1e-6
 _LOBPCG_SHIFT = 2.0 + 2.0 * _EPS_SHIFT
 _START_SEED = 42
+
+
+@dataclasses.dataclass
+class DestShardedGraph:
+    """This rank's edges of a symmetric EdgeGraph: those whose
+    destination row it owns, in their original order (multimodal_umap_tpu/
+    ops/spectral.py:35: there (P, E_pad) arrays sharded on P, padded with
+    weight-0 edges; here each rank holds only its own). ``rows`` are
+    local destination ids, ``cols`` global source ids, ``weights`` 0
+    where the edge was invalid."""
+
+    rows: torch.Tensor  # (E_r,) int64
+    cols: torch.Tensor  # (E_r,) int64
+    weights: torch.Tensor  # (E_r,) f32
+    num_rows: int  # global N
+    mesh: object
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def local_rows(self) -> int:
+        return self.num_rows // self.mesh.size
+
+
+def dest_shard_graph(graph: EdgeGraph, mesh) -> DestShardedGraph:
+    """Buckets a symmetric EdgeGraph (whole on every rank) by destination
+    shard and keeps this rank's bucket. Requires ``num_rows`` divisible
+    by the mesh size (the ring kNN's precondition)."""
+    n, p = graph.num_rows, mesh.size
+    if n % p:
+        raise ValueError(f"num_rows={n} not divisible by mesh size {p}")
+    lo = mesh.rank * (n // p)
+    rows = graph.rows.long()
+    keep = torch.nonzero((rows >= lo) & (rows < lo + n // p)).squeeze(1)
+    w = torch.where(graph.valid, graph.weights, 0.0)
+    return DestShardedGraph(rows=rows[keep] - lo, cols=graph.cols.long()[keep],
+                            weights=w[keep], num_rows=n, mesh=mesh)
 
 
 def _degrees(graph: EdgeGraph) -> torch.Tensor:
@@ -51,8 +99,9 @@ def _adjacency_apply(graph: EdgeGraph, w: torch.Tensor, y: torch.Tensor,
     (edges, B) gather is scaled in place: one edge-block-sized
     transient."""
     edge_block = _EDGE_BLOCK if edge_block is None else edge_block
-    out = torch.zeros((graph.num_rows, y.shape[1]), dtype=y.dtype,
-                      device=y.device)
+    out_rows = (graph.local_rows if isinstance(graph, DestShardedGraph)
+                else graph.num_rows)
+    out = torch.zeros((out_rows, y.shape[1]), dtype=y.dtype, device=y.device)
     for e0 in range(0, graph.num_edges, edge_block):
         _add_edges(out, graph.rows[e0:e0 + edge_block],
                    graph.cols[e0:e0 + edge_block], w[e0:e0 + edge_block], y)
@@ -76,6 +125,29 @@ class _Laplacian:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         ax = _adjacency_apply(self.graph, self.w, self.d_inv_sqrt[:, None] * x)
         return (1.0 + _EPS_SHIFT) * x - self.d_inv_sqrt[:, None] * ax
+
+
+class _MeshLaplacian(_Laplacian):
+    """:class:`_Laplacian` of a :class:`DestShardedGraph`: (N, B) in,
+    (N, B) out on every rank; each apply computes this rank's rows and
+    all-gathers them (its one collective)."""
+
+    def __init__(self, graph: DestShardedGraph):
+        self.graph = graph
+        self.w = graph.weights
+        self.lo = graph.mesh.rank * graph.local_rows
+        deg = torch.zeros(graph.local_rows, dtype=torch.float32,
+                          device=self.w.device)
+        deg.index_add_(0, graph.rows, self.w)
+        self.d_inv_sqrt = all_gather_tensor(deg.clamp_min(1e-6),
+                                            graph.mesh) ** -0.5
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        hi = self.lo + self.graph.local_rows
+        ax = _adjacency_apply(self.graph, self.w, self.d_inv_sqrt[:, None] * x)
+        lx = ((1.0 + _EPS_SHIFT) * x[self.lo:hi]
+              - self.d_inv_sqrt[self.lo:hi, None] * ax)
+        return all_gather_tensor(lx, self.graph.mesh)
 
 
 def _cheb_rayleigh_ritz(lap: _Laplacian, x: torch.Tensor):
@@ -132,8 +204,10 @@ def _spectral_chebyshev(graph: EdgeGraph, out_dim: int, degree: int = 24,
                         tol: float = 2e-3) -> torch.Tensor:
     """Chebyshev-filtered subspace iteration: rounds repeat until the
     worst residual of the returned columns is <= ``tol``, at most
-    ``max_rounds`` (one host read of the residual per round)."""
-    lap = _Laplacian(graph)
+    ``max_rounds`` (one host read of the residual per round). A
+    :class:`DestShardedGraph` takes the mesh's apply."""
+    lap = (_MeshLaplacian(graph) if isinstance(graph, DestShardedGraph)
+           else _Laplacian(graph))
     x, theta = _cheb_init(lap, graph.num_rows, out_dim, guard)
     for _ in range(max_rounds):
         x, theta = _cheb_filter_round(lap, x, theta, degree)
@@ -288,19 +362,25 @@ def _spectral_dense(graph: EdgeGraph, out_dim: int) -> torch.Tensor:
 
 
 def spectral_embedding(graph: EdgeGraph, out_dim: int,
-                       method: str = "auto") -> torch.Tensor:
+                       method: str = "auto", mesh=None) -> torch.Tensor:
     """(N, out_dim) f32 smallest non-trivial Laplacian eigenvectors of
     the symmetric fuzzy graph.
 
     ``method``: "dense", "chebyshev", "lobpcg" (at most 64 iterations;
     needs 5 * (out_dim + 1) < N), or "auto" (dense below the small-n
-    guardrail, where the filter block would not fit, else chebyshev)."""
+    guardrail, where the filter block would not fit, else chebyshev).
+    ``mesh`` (more than one rank, N divisible): the Chebyshev filter runs
+    on :func:`dest_shard_graph`'s bucket; every rank returns the whole
+    block."""
     small_n = graph.num_rows < 4 * (out_dim + 1) + 4
     if method == "auto" or (method == "chebyshev" and small_n):
         method = "dense" if small_n else "chebyshev"
     if method == "dense":
         return _spectral_dense(graph, out_dim)
     if method == "chebyshev":
+        if (mesh is not None and mesh.size > 1
+                and graph.num_rows % mesh.size == 0):
+            graph = dest_shard_graph(graph, mesh)
         return _spectral_chebyshev(graph, out_dim)
     if method == "lobpcg":
         return _spectral_lobpcg(graph, out_dim)

@@ -152,14 +152,18 @@ def load_state(path: str, device: torch.device) -> dict:
         return state_from_arrays(z, device)
 
 
-def feature_fingerprint(feats) -> int:
+def feature_fingerprint(feats, dtype: torch.dtype | None = None) -> int:
     """Content guard for the graph cache: CRC over a strided sample of up
     to 64 rows (always the first and last) plus the table shape. The
     same bytes give the JAX package's fingerprint (a bf16 table's bytes
-    are its 2-byte bit patterns in both)."""
+    are its 2-byte bit patterns in both). ``dtype``: the rows are cast to
+    it first (the storage dtype of a table given in another)."""
     n = int(feats.shape[0])
     idx = sorted({0, n - 1, *range(0, n, -(-n // 62))})
-    rows = np.ascontiguousarray(_np(feats[idx]))  # one gather + readback
+    rows = feats[idx]
+    if dtype is not None:
+        rows = torch.as_tensor(rows).to(dtype)
+    rows = np.ascontiguousarray(_np(rows))  # one gather + readback
     crc = zlib.crc32(rows.tobytes())
     shape = ",".join(str(s) for s in feats.shape)
     return zlib.crc32(shape.encode(), crc)

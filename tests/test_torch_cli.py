@@ -4,7 +4,8 @@ process -- tests/test_cli.py's runs of ``main.py`` (synthetic end to end,
 ``--feature_dtype bfloat16``), ``main_torch.py`` against ``main.py`` on
 the same arguments and on a checkpoint the JAX package fitted and wrote,
 the flag surface against ``main.py``'s, and the refusals
-(``--mesh_devices > 1``, real data without a cache).
+(``--mesh_devices`` other than the world size, real data without a
+cache).
 
 Metrics against ``main.py``'s are held to the end-to-end tests' bands
 (tests/test_torch_e2e.py): cosine >= JAX's - 0.03, kNN accuracy >= 0.9 x
@@ -207,6 +208,6 @@ def test_cli_refusals(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit):
         main_torch.main(SMALL + ["--mesh_devices", "4"])
-    assert "ROADMAP item 12" in capsys.readouterr().err
+    assert "world size is 1" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="synthetic"):
         main_torch.main(["--device", "cpu"])  # no cached flickr30k features

@@ -69,9 +69,15 @@ def test_extract_batches_and_first_caption():
 
 
 def test_extract_features_is_single_device():
-    with pytest.raises(ValueError, match="one device"):
+    """Without a mesh extraction runs on one device; a mesh must divide
+    the batch (JAX's rule; the mesh run itself is in
+    tests/test_torch_mesh.py)."""
+    from multimodal_umap_tpu_torch.parallel import Mesh
+
+    mesh = Mesh(rank=0, size=3, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="divisible"):
         extract_features(_samples(2, np.random.default_rng(0)),
-                         _stub_encoders([]), mesh=object())
+                         _stub_encoders([]), batch_size=4, mesh=mesh)
 
 
 def test_load_data_caches_an_injected_stream(tmp_path):

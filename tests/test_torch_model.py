@@ -198,9 +198,9 @@ def test_port_imports_no_jax():
     files += [ROOT / "chip_smoke.py", ROOT / "profile_torch.py",
               ROOT / "main_torch.py", ROOT / "compare_knn_tile.py",
               ROOT / "spectral_null_space.py",
-              ROOT / "scale_ladder_torch.py"]
+              ROOT / "scale_ladder_torch.py", ROOT / "mesh_path_torch.py"]
     assert len(files) > 15
-    assert {"app", "nn", "utils", "models", "ops"} <= {
+    assert {"app", "nn", "utils", "models", "ops", "parallel"} <= {
         p.parent.name for p in files}
     banned = ("jax", "jaxlib", "flax", "optax", "multimodal_umap_tpu")
     for path in files:
