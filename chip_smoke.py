@@ -38,13 +38,23 @@ line:
    text->image recon MSE <= 1.1 x the reference's after transform +
    ``inverse_transform``) and the kernel kNN engine against the exact f32
    engine on a small input;
-5. main_path -- ``clustered_modalities(31,744 + 1,024, (768, 4096))``,
+5. layout_graph -- the captured layout epoch (``train_layout`` on CUDA
+   replays one CUDA graph per epoch) against the eager loop on the same
+   buffers, draws and update (``layout_graph_torch.py``), at the main
+   path's data: 100 fit epochs (losses rtol 1e-5 over the first 20 and
+   1e-4 at each, embeddings rtol 2e-3 / atol 2e-4; the captured draws
+   bit-equal to ``draw_epoch``'s), 20 transform and 20 invert epochs at
+   the 1,024 test queries, a captured fit cut at epoch 50 and resumed
+   against the uninterrupted one, ms per epoch of both runners, and the
+   host launches per captured fit epoch (fails above 40). Every later
+   phase runs its layouts captured;
+6. main_path -- ``clustered_modalities(31,744 + 1,024, (768, 4096))``,
    ``train`` with ``Config`` defaults (k=15, out_dim=64, 600 epochs),
    ``similarity_test`` and ``knn_test`` (k=5) on 1,024 held-out pairs at
    120 test epochs, ``trustworthiness_sampled`` on both modalities;
    kernel launches counted after fit, transform and knn_test; fails on
    a non-finite metric, cosine < 0.9 or a kernel the path never ran;
-6. recon_path -- the rest of the library flow on the fitted model, with
+7. recon_path -- the rest of the library flow on the fitted model, with
    the launch counts set to 0 just before it: ``save_state_dict`` ->
    ``load_state_dict`` into a fresh model (every array bit-equal; archive
    size and seconds), ``embed_and_recon`` of the 1,024 test texts to
@@ -58,13 +68,13 @@ line:
    module on the CPU in float32 and float64: the card's float32 decode
    agrees with both (rtol 1e-4, atol 1e-5 per unit of the output's
    largest magnitude);
-7. f32_table -- the f32 mode at full width on a driven path, with the
+8. f32_table -- the f32 mode at full width on a driven path, with the
    launch counts set to 0 just before it: ``knn(images, images, 15,
    exclude_self=True, engine="pallas")`` over the whole 31,744 x 4,096
    f32 image table (four row blocks: four f32-mode launches) against
    ``engine="xla"``, squared distances at the f32 tolerance and ids
    tie-aware; prints seconds of both and the launches;
-8. cli_path -- the CLI, ``main_torch.main`` in process, with the launch
+9. cli_path -- the CLI, ``main_torch.main`` in process, with the launch
    counts set to 0 just before it: ``--synthetic --n_samples 131072
    --feature_dtype bfloat16 --knn_engine approx`` and the ``Config``
    defaults otherwise (k=15, out_dim=64, 600 / 120 epochs), its model,
@@ -82,7 +92,7 @@ line:
    table's f32 size), or a kernel mode the run never launched (bf16
    tables in the kernel's bf16 mode; ``approx`` runs its f32 mode in the
    recon app's latent-space invert graph);
-9. engine_checks -- ``lobpcg`` on the CLI model's text graph, from
+10. engine_checks -- ``lobpcg`` on the CLI model's text graph, from
    ``--spectral lobpcg``'s operator and start block: the default run
    (the JAX package's tolerance, whose test scales with the row count)
    must stop at the iteration where the JAX package's rule, computed
@@ -100,7 +110,7 @@ line:
    cosines of the whole blocks are printed); ``knn(engine="approx")`` against
    ``engine="xla"`` at the main-path block (ids tie-aware, f32
    tolerance);
-10. scale_path -- ``scale_ladder_torch.run_rung`` at 524,288 pairs, with
+11. scale_path -- ``scale_ladder_torch.run_rung`` at 524,288 pairs, with
    the launch counts set to 0 just before it: bf16 tables drawn on the
    card (768 / 4,096 dims, 256 clusters), ``fit`` with the ``Config``
    defaults (k=15, out_dim=64, 600 / 120 epochs), ``similarity_test``,
@@ -112,7 +122,7 @@ line:
    Fails on cosine < 0.9, a non-finite metric or fit loss, recon MSE not
    below the train-mean predictor's, a bounded form that did not engage,
    a gated stage at or above its gate, or a kernel never launched;
-11. mesh_path -- the data-parallel mesh (``mesh_path_torch.py``), with
+12. mesh_path -- the data-parallel mesh (``mesh_path_torch.py``), with
    the launch counts set to 0 just before it: (a) in process, NCCL at
    world size 1: ``knn_ring`` against ``knn`` on both training tables and
    the test images (ids tie-aware, distances rtol 1e-5), the
@@ -130,7 +140,7 @@ line:
    kernel launch signature of rank 0 held against its plain version and
    timed. Fails on a disagreement, cosine < 0.99 or more than 0.005 from
    the main path's, or a kernel the path never launched;
-12. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
+13. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
    (norm pre-pass, tile kernel, candidate permute + merge ``topk``,
    exact f32 re-score), and the tile kernel at the other main-path
    shapes (D=768; the 1,024-row transform block; the invert block, the
@@ -145,7 +155,7 @@ line:
    mode's bound is the larger of its bytes and its three TF32 passes at
    the tensor cores' TF32 rate; ``bound_fma_ms`` is one f32 pass on the
    CUDA cores' FMA pipe);
-13. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
+14. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
     times of each kernel (the tile kernel's bf16 and f32 modes are its
     two entry points) at the main-path block shape -- the bf16 mode with
     its scale-path column chunk (8,192 x 32,768 at D = 4,096 and 768)
@@ -153,7 +163,7 @@ line:
     launches on the fit/eval path, the recon path, the f32 table path,
     the CLI path, the scale path and both mesh parts, and the bf16 mode
     at the mesh path's fit ring steps (8,192 x 15,872 at both D);
-14. last line -- ``{"ok": true, "device": {...}}``.
+15. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -374,7 +384,7 @@ def sass_counts(so_path, kernels) -> dict:
 
 
 def recon_path(model, train_np, test_np, cfg, dev, out_dir):
-    """Phase 6 (see the module docstring). Returns (the phase's JSON
+    """Phase 7 (see the module docstring). Returns (the phase's JSON
     line, the 1,024 recon-query embeddings the invert graph searched
     with, the rows of the 16 app samples among them)."""
     from multimodal_umap_tpu_torch.app.crossmodal import crossmodal_recon
@@ -489,7 +499,7 @@ def recon_path(model, train_np, test_np, cfg, dev, out_dir):
 
 
 def cli_path(dev, out_dir):
-    """Phase 7 (see the module docstring). Returns (the phase's JSON
+    """Phase 9 (see the module docstring). Returns (the phase's JSON
     line, the model ``main_torch.main`` returned, its launch counts, its
     tile-kernel census: per launch signature, the first launch's inputs
     and the launch count)."""
@@ -507,7 +517,7 @@ def cli_path(dev, out_dir):
             "--save_path", save_path, "--log_dir", log_dir]
     # An observer around the wrapper (``knn_tiled`` looks it up at each
     # call): it keeps the inputs of the first launch of each signature,
-    # so that phase 9 holds the kernel against its plain version at
+    # so that phase 13 holds the kernel against its plain version at
     # every shape this path gave it. The counts stay the wrapper's own.
     census = {}
     wrapper = KT.knn_tile
@@ -631,7 +641,7 @@ def subspace_cosines(a, b) -> torch.Tensor:
 
 
 def engine_checks(cli_model, images, dev):
-    """Phase 8 (see the module docstring)."""
+    """Phase 10 (see the module docstring)."""
     from multimodal_umap_tpu_torch.ops import spectral as PS
     from multimodal_umap_tpu_torch.ops.knn import knn
 
@@ -715,7 +725,7 @@ def engine_checks(cli_model, images, dev):
 
 
 def f32_table(images):
-    """Phase 7 (see the module docstring). Returns (the phase's JSON line,
+    """Phase 8 (see the module docstring). Returns (the phase's JSON line,
     the f32-mode launches it made)."""
     from multimodal_umap_tpu_torch.ops import knn_tile as KT
     from multimodal_umap_tpu_torch.ops.knn import knn
@@ -921,7 +931,15 @@ def main() -> None:
           "bf16 kernel engine disagrees with the exact engine")
     check(s_mse <= 1.1 * ref["recon_mse"], "small-input recon MSE above band")
 
-    # 5. main path at full width
+    # 5. the captured layout epoch against the eager loop
+    # (layout_graph_torch.py); every later layout runs captured
+    import layout_graph_torch as LG
+
+    gline, graph_fails = LG.run(train_np, test_np, dev)
+    emit(gline)
+    check(not graph_fails, "layout_graph: " + "; ".join(graph_fails))
+
+    # 6. main path at full width
     cfg = Config()
     torch.cuda.synchronize()
     reset_counts(KT)
@@ -974,7 +992,7 @@ def main() -> None:
           "knn_test launched no kNN kernel")
     check(norm_launches > 0, "the main path launched no norm pre-pass")
 
-    # 6. the recon path (save/load, embed_and_recon, crossmodal_recon)
+    # 7. the recon path (save/load, embed_and_recon, crossmodal_recon)
     torch.cuda.synchronize()
     reset_counts(KT)
     rline, invert_q, app_rows = recon_path(model, train_np, test_np, cfg,
@@ -1002,7 +1020,7 @@ def main() -> None:
           "the recon path launched no kernel")
     recon_f32_launches = KT.KNN_TILE_F32_LAUNCHES
 
-    # 7. the f32 mode over the whole image table
+    # 8. the f32 mode over the whole image table
     fline, table_f32_launches = f32_table(images)
     emit(fline)
     check(fline["vs_xla"]["values_ok"] and fline["vs_xla"]["ids_ok"],
@@ -1012,7 +1030,7 @@ def main() -> None:
           f"f32 table path: {table_f32_launches} f32-mode launches, "
           f"{fline['other_launches']} others")
 
-    # 8. the CLI path at 131,072 pairs, bf16-stored tables
+    # 9. the CLI path at 131,072 pairs, bf16-stored tables
     cline, cli_model, cli_launches, census = cli_path(dev, OUT_DIR)
     emit(cline)
     metrics = cline["metrics"]
@@ -1034,7 +1052,7 @@ def main() -> None:
     check(all(v > 0 for v in cli_launches.values()),
           f"CLI path left a kernel mode unlaunched: {cli_launches}")
 
-    # 9. lobpcg and approx on the card
+    # 10. lobpcg and approx on the card
     eline = engine_checks(cli_model, images, dev)
     emit(eline)
     lob = eline["lobpcg"]
@@ -1056,7 +1074,7 @@ def main() -> None:
           and eline["approx_vs_xla"]["ids_ok"],
           "approx engine disagrees with the exact engine")
 
-    # 10. the scale path: the ladder's first rung in process, 524,288
+    # 11. the scale path: the ladder's first rung in process, 524,288
     # pairs with bf16 tables at full width (scale_ladder_torch.py)
     import scale_ladder_torch as ladder
 
@@ -1074,7 +1092,7 @@ def main() -> None:
           and scale_launches["knn_rownorm"] > 0,
           f"scale path left a kernel unlaunched: {scale_launches}")
 
-    # 11. the mesh path: NCCL at world size 1 in process, then two gloo
+    # 12. the mesh path: NCCL at world size 1 in process, then two gloo
     # ranks sharing this card (mesh_path_torch.py)
     import mesh_path_torch as MP
 
@@ -1092,7 +1110,7 @@ def main() -> None:
           == sorted(DIMS), "mesh path: no fit ring step of "
           f"{BLOCK_ROWS} rows at D = {DIMS}")
 
-    # 12. knn_tiled's stages at the main-path block (rows [0, 8192) of the
+    # 13. knn_tiled's stages at the main-path block (rows [0, 8192) of the
     # D=4096 fit graph, bf16), and the tile kernel at the other shapes,
     # each also held against its plain version there
     from multimodal_umap_tpu_torch.ops.knn import _exact_rescore_sq
@@ -1221,9 +1239,9 @@ def main() -> None:
           f"scale path: no fit chunk launch of {BLOCK_ROWS} x "
           f"{KT.COL_BLOCK} at D = {DIMS}")
 
-    # 13. kernels line: the fit graph's main-path block at D=4096, bf16,
+    # 14. kernels line: the fit graph's main-path block at D=4096, bf16,
     # with its column chunk on the scale path (8,192 x COL_BLOCK, D = 4,096
-    # and 768) beside it; f32 mode at the same block (phase 7 drives it
+    # and 768) beside it; f32 mode at the same block (phase 8 drives it
     # there), with its launch on the CLI path (the recon app's 16 x
     # COL_BLOCK chunks at D=64) beside it
     ms = stages["tile_kernel_ms"]

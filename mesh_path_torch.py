@@ -17,7 +17,8 @@ a duplicate device), so:
     (1 %); the sharded layout engine's functions called directly
     (``sharded_compatible`` is False at one rank, as in JAX) for 20 fit
     epochs against ``train_layout`` on the same draws (losses rtol 1e-5,
-    embeddings rtol 2e-3 / atol 2e-4); the recorded collectives of one
+    embeddings rtol 2e-3 / atol 2e-4; at one rank they are bit-equal,
+    ``bit_equal``); the recorded collectives of one
     fit epoch (one table all-gather and one reduce-scatter per modality,
     no table-sized all-reduce) and of a 4-epoch transform chunk (the
     reference table gathered once, nothing table-sized per epoch);
@@ -97,6 +98,7 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
         draw_epoch,
         epoch_rng,
         fit_task,
+        make_optimizer,
         query_task,
         train_layout,
     )
@@ -240,7 +242,7 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
         runner = sharded_chunk_runner(tuple(statics), "fit", cfg.num_rep,
                                       cfg.alpha, cfg.batch_size, mesh)
         params = [e.detach().clone().requires_grad_(True) for e in inits]
-        opt = torch.optim.Adam(params, lr=cfg.lr)
+        opt = make_optimizer(params, cfg.lr)  # train_layout's update
         t0 = time.perf_counter()
         hist_m = runner(params, opt, tasks, a, b, draws, 0, LAYOUT_EPOCHS)
         _sync()
@@ -255,6 +257,8 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
             "sharded_seconds": t_mesh,
             "max_abs_err": max(float((p.detach() - e).abs().max())
                                for p, e in zip(params, single)),
+            "bit_equal": all(torch.equal(p.detach(), e)
+                             for p, e in zip(params, single)),
             "single_vs_single_max_abs_err": max(
                 float((x - y).abs().max()) for x, y in zip(again, single)),
             "within_rtol_1e-4_atol_1e-5": excess(params, single, 1e-4,
@@ -263,10 +267,16 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
                                                  2e-4) <= 0,
             "loss_rel_err": float(((hist_m.cpu() - hist_s).abs()
                                    / hist_s.abs()).max())}
-        # Adam divides by sqrt(v) + 1e-8 and many gradient entries are
-        # near 1e-8 here, so summation-order noise grows over the epochs:
-        # held to the JAX package's own sharded-vs-single tolerance
-        # (tests/test_sharding.py), the losses to rtol 1e-5.
+        # At one rank the sharded fit loss builds the single-device terms
+        # in the same order, so the runs are expected bit-equal
+        # ("bit_equal"). A summation-order difference would grow from
+        # epoch to epoch (Adam moves each row by about lr, its own size),
+        # so the check is the JAX package's sharded-vs-single tolerance
+        # (tests/test_sharding.py), the losses to rtol 1e-5; and
+        # bit-equality itself is held.
+        if not line["layout"]["bit_equal"]:
+            fails.append("sharded layout engine at one rank is not "
+                         "bit-equal to train_layout")
         if not line["layout"]["within_rtol_2e-3_atol_2e-4"]:
             fails.append("sharded layout engine disagrees with train_layout")
         if line["layout"]["loss_rel_err"] > 1e-5:
@@ -285,7 +295,7 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
         trunner = sharded_chunk_runner((static,), "transform", cfg.num_rep,
                                        0.0, cfg.batch_size, mesh)
         q_par = [q_init.clone().requires_grad_(True)]
-        q_opt = torch.optim.Adam(q_par, lr=cfg.lr)
+        q_opt = make_optimizer(q_par, cfg.lr)
 
         def q_draws(e):
             return draw_epoch(epoch_rng(cfg.seed + 1, e, dev), [task],

@@ -29,11 +29,21 @@ Randomness is explicit: every loss takes its draws as tensors
 ``draw_*`` helpers make them from ``torch.Generator``s seeded per epoch
 from (seed, epoch), so a run resumed at ``start_epoch`` replays the
 draws an uninterrupted run would have used. ``deterministic=True``
-replaces Bernoulli keeps with their expectation.
+replaces Bernoulli keeps with their expectation. The drawn roll offsets
+reach the loss as one int64 device vector (:func:`pack_rolls`), read by
+gathers (``scatter_free.dynamic_roll``), as JAX traces them.
+
+``train_layout`` runs the single-device epochs on CUDA as one captured
+CUDA graph replayed once per epoch (:func:`_graph_chunk_runner`, the
+counterpart of the JAX package's compiled ``_chunk_runner``), and on
+the CPU as an eager loop (:func:`_eager_chunk_runner`); both read the
+epoch's draws from buffers allocated once per call
+(:class:`_EpochInputs`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import typing
@@ -43,7 +53,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import losses as L
 from ..ops.graph import DenseSymGraph
-from ..ops.scatter_free import permutation_gather, random_permutation_pair
+from ..ops.scatter_free import (
+    dynamic_roll,
+    permutation_gather,
+    random_permutation_pair,
+)
 
 
 class LayoutTask(typing.NamedTuple):
@@ -133,59 +147,110 @@ class EpochDraws:
 @dataclasses.dataclass
 class EpochRng:
     """Generators of one epoch: ``device`` for tensor draws, ``host``
-    (CPU) for the scalar offsets."""
+    (CPU) for the scalar offsets. A None generator leaves its draws to
+    be made elsewhere: the ``draw_*`` helpers then keep what their
+    ``out`` holds (a captured graph makes the device draws)."""
 
-    device: torch.Generator
-    host: torch.Generator
+    device: torch.Generator | None
+    host: torch.Generator | None
     dev: torch.device
+
+
+def _epoch_seed(seed: int, epoch: int) -> int:
+    return (int(seed) * 0x9E3779B1 + int(epoch) * 0x85EBCA77 + 1) % (2**63)
 
 
 def epoch_rng(seed: int, epoch: int, device: torch.device) -> EpochRng:
     """Generators of epoch ``epoch``, seeded from (seed, epoch) only."""
-    s = (int(seed) * 0x9E3779B1 + int(epoch) * 0x85EBCA77 + 1) % (2**63)
+    s = _epoch_seed(seed, epoch)
     return EpochRng(device=torch.Generator(device=device).manual_seed(s),
                     host=torch.Generator().manual_seed(s),
                     dev=device)
 
 
-def draw_fit(rng: EpochRng, static: TaskStatic, k: int,
-             num_rep: int) -> FitDraws:
-    n = static.num_rows
-    u_f = torch.rand(n, k, generator=rng.device, device=rng.dev)
-    u_b = torch.rand(n, k, generator=rng.device, device=rng.dev)
-    pi, pi_inv = random_permutation_pair(static.rep_count, rng.device, rng.dev)
-    stride = max(1, static.rep_count // max(num_rep, 1))
-    base = int(torch.randint(0, static.rep_count, (), generator=rng.host))
+def draw_fit(rng: EpochRng, static: TaskStatic, k: int, num_rep: int,
+             out: FitDraws | None = None) -> FitDraws:
+    """One modality's fit draws; ``out``'s buffers receive the tensors."""
+    n, m = static.num_rows, static.rep_count
+    if out is None:
+        out = FitDraws(torch.empty(n, k, device=rng.dev),
+                       torch.empty(n, k, device=rng.dev),
+                       torch.empty(m, dtype=torch.int64, device=rng.dev),
+                       torch.empty(m, dtype=torch.int64, device=rng.dev),
+                       0, [])
+    if rng.device is not None:
+        torch.rand(n, k, generator=rng.device, out=out.keep_u_f)
+        torch.rand(n, k, generator=rng.device, out=out.keep_u_b)
+        random_permutation_pair(m, rng.device, rng.dev,
+                                out=(out.pi, out.pi_inv))
+    if rng.host is None:
+        return out
+    stride = max(1, m // max(num_rep, 1))
+    base = int(torch.randint(0, m, (), generator=rng.host))
     intra = torch.randint(0, stride, (num_rep,), generator=rng.host).tolist()
-    return FitDraws(u_f, u_b, pi, pi_inv, base, intra)
+    return dataclasses.replace(out, base=base, intra=intra)
 
 
-def draw_query(rng: EpochRng, static: TaskStatic, k: int,
-               num_rep: int) -> QueryDraws:
+def draw_query(rng: EpochRng, static: TaskStatic, k: int, num_rep: int,
+               out: QueryDraws | None = None) -> QueryDraws:
+    """One modality's transform / invert draws (device only)."""
     q = static.num_rows
-    keep_u = torch.rand(q, k, generator=rng.device, device=rng.dev)
-    neg_idx = torch.randint(0, static.rep_count, (num_rep, q, k),
-                            generator=rng.device, device=rng.dev)
-    return QueryDraws(keep_u, neg_idx)
+    if out is None:
+        out = QueryDraws(torch.empty(q, k, device=rng.dev),
+                         torch.empty(num_rep, q, k, dtype=torch.int64,
+                                     device=rng.dev))
+    if rng.device is not None:
+        torch.rand(q, k, generator=rng.device, out=out.keep_u)
+        torch.randint(0, static.rep_count, (num_rep, q, k),
+                      generator=rng.device, out=out.neg_idx)
+    return out
 
 
 def draw_epoch(rng: EpochRng, tasks, statics, *, mode: str, num_rep: int,
                alpha: float, n_neg_infonce: int = 8,
-               infonce_group_size: int = 1000) -> EpochDraws:
-    """Every draw of one epoch, in a fixed order."""
+               infonce_group_size: int = 1000,
+               out: EpochDraws | None = None) -> EpochDraws:
+    """Every draw of one epoch, in a fixed order; ``out`` (an earlier
+    epoch's draws) receives the tensors in its buffers."""
     draw = draw_fit if mode == "fit" else draw_query
-    per_mod = [draw(rng, s, t.nbrs.shape[1], num_rep)
-               for t, s in zip(tasks, statics)]
+    per_mod = [draw(rng, s, t.nbrs.shape[1], num_rep,
+                    None if out is None else out.modality[i])
+               for i, (t, s) in enumerate(zip(tasks, statics))]
     pairs = []
     if mode == "fit" and len(statics) > 1 and alpha != 0.0:
+        bufs = iter(out.infonce) if out is not None else None
         for i in range(len(statics)):
             for j in range(i + 1, len(statics)):
                 num = min(statics[i].num_rows, statics[j].num_rows)
+                pair = next(bufs) if bufs is not None else (None, None)
                 pairs.append(tuple(
                     L.draw_infonce(num, n_neg_infonce, infonce_group_size,
-                                   rng.device, rng.host, rng.dev)
-                    for _ in range(2)))
+                                   rng.device, rng.host, rng.dev, out=b)
+                    for b in pair))
     return EpochDraws(per_mod, pairs)
+
+
+def _fit_rolls(draws: FitDraws, static: TaskStatic,
+               num_rep: int) -> list[int]:
+    """Round r's repulsion offset: the rounds lie in disjoint strata
+    shifted by a shared uniform base, so two rounds never share one."""
+    stride = max(1, static.rep_count // max(num_rep, 1))
+    return [(draws.base + r * stride + draws.intra[r]) % static.rep_count
+            for r in range(num_rep)]
+
+
+def pack_rolls(draws: EpochDraws, statics, num_rep: int) -> list[int]:
+    """The epoch's roll offsets in the order the loss reads them: each
+    fit modality's ``num_rep`` repulsion offsets, then each InfoNCE
+    direction's ``losses.infonce_rolls``."""
+    rolls = []
+    for d, s in zip(draws.modality, statics):
+        if isinstance(d, FitDraws):
+            rolls += _fit_rolls(d, s, num_rep)
+    for pair in draws.infonce:
+        for d in pair:
+            rolls += L.infonce_rolls(d)
+    return rolls
 
 
 def _window_means_from_rows(row_vals, row_cnt, batch_size: int,
@@ -211,7 +276,8 @@ def _inv_window_coef(row_cnt, batch_size: int, num_windows: int
         num_windows, batch_size).sum(1)
     inv = torch.where(cnt_w > 0, 1.0 / cnt_w.clamp_min(1.0), 0.0)
     inv = inv / num_windows
-    return inv.repeat_interleave(batch_size)[:n]
+    # expand, not repeat_interleave: no host sync inside a graph capture
+    return inv[:, None].expand(num_windows, batch_size).reshape(-1)[:n]
 
 
 # Above this many bytes of the (N, k, D) attraction gather the fit loss
@@ -237,8 +303,13 @@ def _recompute(fn, *args, **kwargs):
 def _fit_modality_loss(embed, task: LayoutTask, static: TaskStatic,
                        draws: FitDraws, *, a, b, num_rep: int,
                        batch_size: int, deterministic: bool,
-                       slot_bytes: int | None = None) -> torch.Tensor:
-    n, k = task.nbrs.shape
+                       slot_bytes: int | None = None,
+                       rolls: torch.Tensor | None = None) -> torch.Tensor:
+    """``rolls``: the (num_rep,) int64 device vector of the repulsion
+    offsets (None: made from ``draws``' ints)."""
+    if rolls is None:
+        rolls = torch.tensor(_fit_rolls(draws, static, num_rep),
+                             dtype=torch.int64, device=embed.device)
     if deterministic:
         keep_f = task.weights
         keep_b = task.weights * task.bwd_valid.float()
@@ -258,7 +329,7 @@ def _fit_modality_loss(embed, task: LayoutTask, static: TaskStatic,
                                 a=a, b=b, slot_bytes=slot_bytes)
     if num_rep == 0:
         return loss_attr
-    return loss_attr + _fit_repulsion(embed, static, draws, rowcnt, inv_row,
+    return loss_attr + _fit_repulsion(embed, draws, rolls, rowcnt, inv_row,
                                       a=a, b=b, num_rep=num_rep)
 
 
@@ -290,19 +361,16 @@ def _attr_slot(embed, nbrs_m, coef_m, a, b):
     return (coef_m * L.umap_attr(embed, embed[nbrs_m], a, b)).sum()
 
 
-def _fit_repulsion(embed, static, draws: FitDraws, rowcnt, inv_row, *,
+def _fit_repulsion(embed, draws: FitDraws, rolls, rowcnt, inv_row, *,
                    a, b, num_rep):
-    # Round r's negative for row i is permuted[(i + off_r) % n]; the
-    # offsets lie in disjoint strata shifted by a shared uniform base, so
-    # two rounds never share an offset.
+    # Round r's negative for row i is permuted[(i + rolls[r]) % n]
+    # (:func:`_fit_rolls`).
     rep_coef = rowcnt * inv_row
     permuted = permutation_gather(embed, draws.pi, draws.pi_inv)
-    stride = max(1, static.rep_count // num_rep)
     rep_sum = torch.zeros(embed.shape[0], dtype=torch.float32,
                           device=embed.device)
     for r in range(num_rep):
-        off = (draws.base + r * stride + draws.intra[r]) % static.rep_count
-        rep_sum = rep_sum + L.umap_rep(embed, torch.roll(permuted, -off, 0),
+        rep_sum = rep_sum + L.umap_rep(embed, dynamic_roll(permuted, rolls[r]),
                                        a, b)
     return (rep_coef * (rep_sum / num_rep)).sum()
 
@@ -355,6 +423,17 @@ class AdamState:
     nu: list[torch.Tensor]
 
 
+def make_optimizer(params, lr: float) -> torch.optim.Adam:
+    """The layout's Adam: ``torch.optim.Adam``'s defaults (betas
+    0.9/0.999, eps 1e-8) are optax.adam's, the same bias-corrected
+    update. On CUDA it is capturable (the step count lives on the device
+    and the bias correction is computed there in f32), so the update can
+    be captured in a CUDA graph; an eager loop on the card takes the same
+    update."""
+    return torch.optim.Adam(params, lr=lr,
+                            capturable=params[0].device.type == "cuda")
+
+
 def adam_state(optimizer: torch.optim.Adam, params) -> AdamState:
     """The optimizer's state for ``params`` (all initialized)."""
     states = [optimizer.state[p] for p in params]
@@ -365,9 +444,12 @@ def adam_state(optimizer: torch.optim.Adam, params) -> AdamState:
 
 def _set_adam_state(optimizer: torch.optim.Adam, params,
                     state: AdamState) -> None:
+    # The step lives beside its parameter: on the CPU, as torch.optim
+    # keeps it there; on CUDA, as a capturable Adam needs it.
     for p, mu, nu in zip(params, state.mu, state.nu):
         optimizer.state[p] = {
-            "step": torch.tensor(float(state.count), dtype=torch.float32),
+            "step": torch.tensor(float(state.count), dtype=torch.float32,
+                                 device=p.device),
             "exp_avg": mu.detach().to(p.device, torch.float32).clone(),
             "exp_avg_sq": nu.detach().to(p.device, torch.float32).clone(),
         }
@@ -380,7 +462,9 @@ def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
                  remat_rows: int | None = None,
                  slot_bytes: int | None = None):
     """The total loss of one epoch:
-    ``loss(params, tasks, a, b, draws: EpochDraws) -> scalar``.
+    ``loss(params, tasks, a, b, draws: EpochDraws, rolls=None) ->
+    scalar``, ``rolls`` the epoch's :func:`pack_rolls` as an int64
+    device vector (None: made from ``draws``' ints).
 
     Fit mode recomputes a modality's loss in the backward past
     ``remat_rows`` rows (default :data:`_MODALITY_REMAT_ROWS`) and scans
@@ -389,7 +473,11 @@ def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
     if mode not in _MODES:
         raise ValueError(f"invalid mode: {mode}")
 
-    def loss_fn(params, tasks, a, b, draws: EpochDraws):
+    def loss_fn(params, tasks, a, b, draws: EpochDraws, rolls=None):
+        if rolls is None:
+            rolls = torch.tensor(pack_rolls(draws, statics, num_rep),
+                                 dtype=torch.int64, device=params[0].device)
+        pos = 0  # rolls read so far
         total = params[0].new_zeros(())
         for i, static in enumerate(statics):
             kw = dict(a=a, b=b, num_rep=num_rep, batch_size=batch_size,
@@ -397,6 +485,8 @@ def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
             if mode == "fit":
                 args = (params[i], tasks[i], static, draws.modality[i])
                 kw["slot_bytes"] = slot_bytes
+                kw["rolls"] = rolls[pos:pos + num_rep]
+                pos += num_rep
                 rows = (_MODALITY_REMAT_ROWS if remat_rows is None
                         else remat_rows)
                 if static.num_rows > rows:
@@ -415,16 +505,182 @@ def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
             for i in range(len(statics)):
                 for j in range(i + 1, len(statics)):
                     d_ij, d_ji = next(pair)
+                    r_ij, r_ji = (rolls[pos + c * (n_neg_infonce + 2):
+                                        pos + (c + 1) * (n_neg_infonce + 2)]
+                                  for c in range(2))
+                    pos += 2 * (n_neg_infonce + 2)
                     l_ij = L.infonce(d_ij, params[i], params[j],
                                      n_neg=n_neg_infonce,
-                                     temperature=infonce_temperature)
+                                     temperature=infonce_temperature,
+                                     rolls=r_ij)
                     l_ji = L.infonce(d_ji, params[j], params[i],
                                      n_neg=n_neg_infonce,
-                                     temperature=infonce_temperature)
+                                     temperature=infonce_temperature,
+                                     rolls=r_ji)
                     total = total + alpha * (l_ij + l_ji)
         return total
 
     return loss_fn
+
+
+class _EpochInputs:
+    """One epoch's inputs at fixed addresses, for the chunk runners: the
+    draws in buffers allocated once per ``train_layout`` call and
+    refilled in place each epoch, and the roll offsets packed into one
+    int64 device vector (``rolls``, :func:`pack_rolls`).
+
+    :meth:`set_epoch` (host side: never captured) draws the epoch's ints
+    on the CPU and copies them in, and re-seeds the device generator
+    ``gen`` from (seed, epoch); :meth:`draw_device` then makes the device
+    draws from ``gen`` (captured in the CUDA graph), so both runners draw
+    the numbers ``epoch_rng`` gives. A caller's ``draws(epoch)`` is
+    copied in whole by :meth:`set_epoch` instead."""
+
+    def __init__(self, tasks, statics, *, mode: str, num_rep: int,
+                 alpha: float, seed: int, device: torch.device, draws=None,
+                 first_epoch: int = 0):
+        self.tasks, self.statics, self.num_rep = tasks, statics, num_rep
+        self.seed, self.device, self.user = seed, device, draws
+        self.kw = dict(mode=mode, num_rep=num_rep, alpha=alpha)
+        self.gen = torch.Generator(device=device)
+        self.draws = (_copy_draws(draws(first_epoch)) if draws is not None
+                      else draw_epoch(epoch_rng(seed, first_epoch, device),
+                                      tasks, statics, **self.kw))
+        self.rolls = torch.tensor(pack_rolls(self.draws, statics, num_rep),
+                                  dtype=torch.int64, device=device)
+
+    def set_epoch(self, epoch: int) -> None:
+        if self.user is not None:
+            self.draws = _copy_draws(self.user(epoch), self.draws)
+        else:
+            s = _epoch_seed(self.seed, epoch)
+            self.gen.manual_seed(s)
+            self.draws = draw_epoch(
+                EpochRng(None, torch.Generator().manual_seed(s), self.device),
+                self.tasks, self.statics, out=self.draws, **self.kw)
+        if self.rolls.numel():
+            host = torch.tensor(pack_rolls(self.draws, self.statics,
+                                           self.num_rep), dtype=torch.int64)
+            if self.device.type == "cuda":
+                # A fresh pinned tensor per epoch: the caching host
+                # allocator keeps it until its copy has run, so a later
+                # epoch's ints never overwrite an earlier one's in flight.
+                host = host.pin_memory()
+            self.rolls.copy_(host, non_blocking=True)
+
+    def draw_device(self) -> None:
+        if self.user is None:
+            draw_epoch(EpochRng(self.gen, None, self.device), self.tasks,
+                       self.statics, out=self.draws, **self.kw)
+
+
+def _copy_draws(src: EpochDraws, bufs: EpochDraws | None = None
+                ) -> EpochDraws:
+    """``src`` with its tensors copied into ``bufs``' (in place; None:
+    into fresh clones) and its ints kept."""
+    def one(d, b):
+        return dataclasses.replace(d, **{
+            f.name: (v.clone() if b is None else getattr(b, f.name).copy_(v))
+            for f in dataclasses.fields(d)
+            if isinstance(v := getattr(d, f.name), torch.Tensor)})
+
+    if bufs is None:
+        bufs = EpochDraws([None] * len(src.modality),
+                          [(None, None)] * len(src.infonce))
+    return EpochDraws(
+        [one(d, b) for d, b in zip(src.modality, bufs.modality)],
+        [tuple(one(d, b) for d, b in zip(p, bp))
+         for p, bp in zip(src.infonce, bufs.infonce)])
+
+
+def _epoch_step(params, optimizer, loss_fn, tasks, a, b,
+                inputs: _EpochInputs) -> torch.Tensor:
+    """One epoch on ``inputs``' buffers: device draws, loss, backward,
+    Adam update. Returns the (detached) loss."""
+    inputs.draw_device()
+    optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn(params, tasks, a, b, inputs.draws, inputs.rolls)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+@contextlib.contextmanager
+def _eager_chunk_runner(params, optimizer, loss_fn, tasks, a, b,
+                        inputs: _EpochInputs, first_epoch: int):
+    """One eager step per epoch (the CPU's runner): yields
+    ``run_chunk(start, take) -> (take,) losses``."""
+    del first_epoch
+
+    def run_chunk(start: int, take: int) -> torch.Tensor:
+        hist = torch.empty(take, dtype=torch.float32,
+                           device=params[0].device)
+        for t in range(take):
+            inputs.set_epoch(start + t)
+            hist[t] = _epoch_step(params, optimizer, loss_fn, tasks, a, b,
+                                  inputs)
+        return hist
+
+    yield run_chunk
+
+
+# Eager epochs run before the capture, on a side stream, so that every
+# lazy initialisation (Adam's foreach path, the autograd engine's device
+# threads, kernel modules) happens outside it; they are undone after.
+_WARMUP_EPOCHS = 2
+
+
+@contextlib.contextmanager
+def _graph_chunk_runner(params, optimizer, loss_fn, tasks, a, b,
+                        inputs: _EpochInputs, first_epoch: int):
+    """The counterpart of the JAX package's ``_chunk_runner`` (a jitted
+    ``lax.scan`` of epoch steps: one compiled device program): one epoch
+    -- device draws, loss, backward, Adam update, the loss into a static
+    scalar -- captured once as a CUDA graph on this call's tasks and
+    replayed once per epoch after :meth:`_EpochInputs.set_epoch`. Yields
+    ``run_chunk(start, take) -> (take,) losses`` with no host sync inside
+    a chunk. The warm-up epochs are undone from host copies of the
+    parameters and Adam's state. A capture that fails raises; the graph
+    and its memory pool are released on exit."""
+    device = params[0].device
+    if not optimizer.state:
+        _set_adam_state(optimizer, params, AdamState(
+            0, [torch.zeros_like(p) for p in params],
+            [torch.zeros_like(p) for p in params]))
+    live = [*params, *(optimizer.state[p][k] for p in params
+                       for k in ("step", "exp_avg", "exp_avg_sq"))]
+    saved = [t.detach().cpu() for t in live]
+    inputs.set_epoch(first_epoch)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(_WARMUP_EPOCHS):
+            _epoch_step(params, optimizer, loss_fn, tasks, a, b, inputs)
+    torch.cuda.current_stream(device).wait_stream(side)
+    with torch.no_grad():
+        for t, s in zip(live, saved):
+            t.copy_(s)
+    del saved
+    static_loss = torch.zeros((), device=device)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(inputs.gen)
+    try:
+        with torch.cuda.graph(graph):
+            static_loss.copy_(_epoch_step(params, optimizer, loss_fn, tasks,
+                                          a, b, inputs))
+
+        def run_chunk(start: int, take: int) -> torch.Tensor:
+            hist = torch.empty(take, dtype=torch.float32, device=device)
+            for t in range(take):
+                inputs.set_epoch(start + t)
+                graph.replay()
+                hist[t] = static_loss
+            return hist
+
+        yield run_chunk
+    finally:
+        graph.reset()
+        optimizer.zero_grad(set_to_none=True)
 
 
 def train_layout(
@@ -448,14 +704,17 @@ def train_layout(
     init_opt_state: AdamState | None = None,
     mesh=None,
 ) -> tuple[list[torch.Tensor], torch.Tensor]:
-    """Full-batch Adam layout optimization, one step per epoch.
+    """Full-batch Adam layout optimization, one step per epoch: on CUDA
+    one replay of a captured CUDA graph per epoch
+    (:func:`_graph_chunk_runner`), on the CPU an eager loop
+    (:func:`_eager_chunk_runner`), on the same draws.
 
     ``draws(epoch) -> EpochDraws`` supplies each epoch's randomness;
     None draws from generators seeded by (``seed``, epoch). Every
     ``epoch_chunk`` epochs (default ``MMUMAP_EPOCH_CHUNK``, else 100)
     ``chunk_callback(done, params, optimizer, losses)`` fires; the loss
     history stays on the device until then (no host sync inside the
-    epoch loop).
+    epoch loop). The chunk sets only that cadence.
 
     ``start_epoch``/``init_opt_state`` resume a run: the draws of epoch
     e depend on (seed, e) only, so a resumed run replays exactly the
@@ -466,7 +725,8 @@ def train_layout(
     sharded engine (``layout_sharded.sharded_chunk_runner``): in query
     modes it keeps the reference tables sharded and fetches their rows by
     ring once a table is over ``MMUMAP_REF_GATHER_BYTES`` (default 1
-    GiB) whole. Anything else runs the single-device loop (on every rank).
+    GiB) whole; it runs eagerly. Anything else runs the single-device
+    runner (on every rank).
 
     Returns (final embeddings per modality, (epochs - start_epoch,) f32
     loss history on the CPU).
@@ -478,15 +738,17 @@ def train_layout(
     device = init_embeds[0].device
     params = [e.detach().float().clone().requires_grad_(True)
               for e in init_embeds]
-    # torch.optim.Adam's defaults (betas 0.9/0.999, eps 1e-8) are
-    # optax.adam's: the same bias-corrected update.
-    optimizer = torch.optim.Adam(params, lr=lr)
+    if start_epoch >= epochs:
+        # A snapshot already recorded the final epoch; the loaded params
+        # come back untouched.
+        return [p.detach() for p in params], torch.zeros(0)
+    optimizer = make_optimizer(params, lr)
     if init_opt_state is not None:
         _set_adam_state(optimizer, params, init_opt_state)
     loss_fn = make_loss_fn(statics, mode=mode, num_rep=num_rep, alpha=alpha,
                            batch_size=batch_size)
     tasks = tuple(tasks)
-    sharded = None
+    runner = None
     if mesh is not None and mesh.size > 1:
         from .layout_sharded import sharded_chunk_runner, sharded_compatible
 
@@ -501,31 +763,31 @@ def train_layout(
             sharded = sharded_chunk_runner(
                 tuple(statics), mode, num_rep, alpha, batch_size, mesh,
                 ref_gather)
-    if draws is None:
-        def draws(epoch):
-            return draw_epoch(epoch_rng(seed, epoch, device), tasks, statics,
-                              mode=mode, num_rep=num_rep, alpha=alpha)
+            if draws is None:
+                def draws(epoch):
+                    return draw_epoch(epoch_rng(seed, epoch, device), tasks,
+                                      statics, mode=mode, num_rep=num_rep,
+                                      alpha=alpha)
+            runner = contextlib.nullcontext(
+                lambda start, take: sharded(params, optimizer, tasks, a, b,
+                                            draws, start, take))
+    if runner is None:
+        inputs = _EpochInputs(tasks, statics, mode=mode, num_rep=num_rep,
+                              alpha=alpha, seed=seed, device=device,
+                              draws=draws, first_epoch=start_epoch)
+        chunk_runner = (_graph_chunk_runner if device.type == "cuda"
+                        else _eager_chunk_runner)
+        runner = chunk_runner(params, optimizer, loss_fn, tasks, a, b,
+                              inputs, start_epoch)
 
     history = []
     done = start_epoch
-    while done < epochs:
-        take = min(epoch_chunk, epochs - done)
-        if sharded is not None:
-            hist = sharded(params, optimizer, tasks, a, b, draws, done, take)
-        else:
-            hist = torch.empty(take, dtype=torch.float32, device=device)
-            for t in range(take):
-                optimizer.zero_grad(set_to_none=True)
-                loss = loss_fn(params, tasks, a, b, draws(done + t))
-                loss.backward()
-                optimizer.step()
-                hist[t] = loss.detach()
-        done += take
-        history.append(hist)
-        if chunk_callback is not None:
-            chunk_callback(done, params, optimizer, hist)
-    if not history:
-        # start_epoch >= epochs: a snapshot already recorded the final
-        # epoch; the loaded params come back untouched.
-        return [p.detach() for p in params], torch.zeros(0)
+    with runner as run_chunk:
+        while done < epochs:
+            take = min(epoch_chunk, epochs - done)
+            hist = run_chunk(done, take)
+            done += take
+            history.append(hist)
+            if chunk_callback is not None:
+                chunk_callback(done, params, optimizer, hist)
     return [p.detach() for p in params], torch.cat(history).cpu()

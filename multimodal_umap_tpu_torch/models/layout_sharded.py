@@ -24,7 +24,9 @@ rows, and the communication is:
 Draws: every rank makes each epoch's draws at FULL shape from the same
 generators (``layout.epoch_rng(seed, epoch)``) and slices its rows, so
 the draws equal the single-device run's; only float summation order
-differs.
+differs. The fit loss reads every table through its gathered copy (the
+local rows too), so at one rank it builds the single-device terms in
+the same order and the runs are bit-equal.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import typing
 import torch
 
 from ..ops import losses as L
+from ..ops.scatter_free import dynamic_slice, permutation_gather
 from ..parallel.collectives import (
     all_gather_rows,
     all_gather_tensor,
@@ -48,6 +51,7 @@ from .layout import (
     TaskStatic,
     _inv_window_coef,
     _window_means_from_rows,
+    pack_rolls,
 )
 
 
@@ -85,12 +89,15 @@ def _local_draws(draws: EpochDraws, row0: int, n_local: int,
     return EpochDraws(mods, draws.infonce)
 
 
-def _fit_modality_loss_local(embed_local, embed_full, task: LayoutTask,
-                             static: TaskStatic, draws: FitDraws, *, a, b,
-                             num_rep: int, batch_size: int, row0: int,
+def _fit_modality_loss_local(embed_full, task: LayoutTask,
+                             static: TaskStatic, draws: FitDraws, rolls, *,
+                             a, b, num_rep: int, batch_size: int, row0: int,
                              mesh) -> torch.Tensor:
     """This rank's part of ``layout._fit_modality_loss``: summed over
-    the ranks it is the single-device loss (same draws)."""
+    the ranks it is the single-device loss (same draws). Every term reads
+    the gathered table, so the whole gradient leaves through its one
+    reduce-scatter; on one rank the terms are the single-device ones,
+    built in the same order, and the gradient is bit-equal to it."""
     n_local = task.nbrs.shape[0]
     n = static.num_rows
     keep_f = (draws.keep_u_f < task.weights).float()
@@ -98,30 +105,31 @@ def _fit_modality_loss_local(embed_local, embed_full, task: LayoutTask,
     # Transposed-slot counts anchored at every global row: local partial
     # index_add_ + one (N,) all-reduce.
     bwd_cnt = psum(torch.zeros(n, dtype=torch.float32,
-                               device=embed_local.device).index_add_(
+                               device=embed_full.device).index_add_(
         0, task.nbrs.reshape(-1), keep_b.reshape(-1)), mesh)
     rowcnt = all_gather_tensor(keep_f.sum(1), mesh) + bwd_cnt
     inv_row = _inv_window_coef(rowcnt, batch_size, static.num_windows)
     inv_local = inv_row[row0:row0 + n_local]
     coef = keep_f * inv_local[:, None] + keep_b * inv_row[task.nbrs]
 
+    # The whole table itself at one rank: a slice would sum the anchor
+    # terms apart from the rest.
+    embed = embed_full if n_local == n else embed_full[row0:row0 + n_local]
     y = embed_full[task.nbrs]  # local gather from the gathered table
-    loss_attr = (coef * L.umap_attr(embed_local[:, None, :], y, a, b)).sum()
+    loss_attr = (coef * L.umap_attr(embed[:, None, :], y, a, b)).sum()
     if num_rep == 0:
         return loss_attr
 
-    # roll(table[pi], -off)[i] == table[pi[(i + off) % n]]: the local
-    # rows' negatives straight from the gathered table.
+    # Round r's negative for global row i is permuted[(i + rolls[r]) % n]
+    # (layout._fit_repulsion): the local rows of that roll.
     rep_coef = rowcnt[row0:row0 + n_local] * inv_local
-    rows_global = torch.arange(row0, row0 + n_local,
-                               device=embed_local.device)
-    stride = max(1, static.rep_count // num_rep)
+    permuted = permutation_gather(embed_full, draws.pi, draws.pi_inv)
+    start = torch.tensor(row0, dtype=torch.int64, device=embed_full.device)
     rep_sum = torch.zeros(n_local, dtype=torch.float32,
-                          device=embed_local.device)
+                          device=embed_full.device)
     for r in range(num_rep):
-        off = (draws.base + r * stride + draws.intra[r]) % static.rep_count
-        neg = embed_full[draws.pi[(rows_global + off) % static.rep_count]]
-        rep_sum = rep_sum + L.umap_rep(embed_local, neg, a, b)
+        neg = dynamic_slice(permuted, start + rolls[r], n_local)
+        rep_sum = rep_sum + L.umap_rep(embed, neg, a, b)
     return loss_attr + (rep_coef * (rep_sum / num_rep)).sum()
 
 
@@ -205,12 +213,14 @@ def _make_local_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
         kw = dict(a=a, b=b, num_rep=num_rep, batch_size=batch_size,
                   mesh=mesh)
         if mode == "fit":
+            rolls = torch.tensor(pack_rolls(draws, statics, num_rep),
+                                 dtype=torch.int64, device=params[0].device)
             fulls = [all_gather_rows(e, mesh) for e in params]
             for i, static in enumerate(statics):
                 row0 = mesh.rank * params[i].shape[0]
                 total = total + _fit_modality_loss_local(
-                    params[i], fulls[i], tasks[i], static, draws.modality[i],
-                    row0=row0, **kw)
+                    fulls[i], tasks[i], static, draws.modality[i],
+                    rolls[i * num_rep:(i + 1) * num_rep], row0=row0, **kw)
             if len(statics) > 1 and alpha != 0.0:
                 # On the gathered tables, the same on every rank: 1/P
                 # makes the sum over ranks count loss and gradient once.

@@ -8,7 +8,9 @@ repulsion adds 1e-6 inside the log; inverse-mode attraction is
 
 InfoNCE takes its random draws (rotation, negative permutation, roll
 offsets) as an explicit :class:`InfoNCEDraws`; :func:`draw_infonce`
-makes them from ``torch.Generator``s.
+makes them from ``torch.Generator``s. Its rolls reach the loss as one
+int64 device vector ``[rot, *offsets]`` (:func:`infonce_rolls`), so a
+captured CUDA graph reads each epoch's offsets from a buffer.
 """
 
 from __future__ import annotations
@@ -19,7 +21,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .scatter_free import permutation_gather, random_permutation_pair
+from .scatter_free import (
+    dynamic_roll,
+    dynamic_slice,
+    permutation_gather,
+    random_permutation_pair,
+)
 
 
 def _sq_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -82,25 +89,42 @@ class InfoNCEDraws:
 
 
 def draw_infonce(num: int, n_neg: int, group_size: int,
-                 gen: torch.Generator, host_gen: torch.Generator,
-                 device: torch.device | str) -> InfoNCEDraws:
+                 gen: torch.Generator | None,
+                 host_gen: torch.Generator | None,
+                 device: torch.device | str,
+                 out: InfoNCEDraws | None = None) -> InfoNCEDraws:
     """Draws of one InfoNCE direction: the permutation from ``gen`` (on
     ``device``), the integers from the CPU generator ``host_gen`` (no
-    device sync to read them)."""
+    device sync to read them). ``out`` receives the permutation in its
+    buffers; a None generator keeps what ``out`` holds of its draws."""
+    if gen is None:
+        q, q_inv = out.q, out.q_inv
+    else:
+        q, q_inv = random_permutation_pair(
+            num, gen, device, out=None if out is None else (out.q, out.q_inv))
+    if host_gen is None:
+        return InfoNCEDraws(rot=out.rot, q=q, q_inv=q_inv,
+                            offsets=out.offsets)
     rot = (0 if num % group_size == 0 else
            int(torch.randint(0, num, (), generator=host_gen)))
-    q, q_inv = random_permutation_pair(num, gen, device)
     offsets = torch.randint(0, num, (n_neg + 1,), generator=host_gen).tolist()
     return InfoNCEDraws(rot=rot, q=q, q_inv=q_inv, offsets=offsets)
 
 
+def infonce_rolls(draws: InfoNCEDraws) -> list[int]:
+    """One direction's roll offsets in the order :func:`infonce` reads
+    them: the rotation, then the negative columns' offsets."""
+    return [draws.rot, *draws.offsets]
+
+
 def _infonce_per_elem(e0, e1, permuted_1, q, rot, offsets, temperature,
                       block_rows):
-    """Whole-table per-element InfoNCE values (slot order)."""
+    """Whole-table per-element InfoNCE values (slot order). ``rot`` and
+    the ``offsets`` are 0-d int64 device tensors."""
     del block_rows
     num = e0.shape[0]
-    anchors = _l2_normalize(torch.roll(e0, -rot, 0))
-    positives = _l2_normalize(torch.roll(e1, -rot, 0))
+    anchors = _l2_normalize(dynamic_roll(e0, rot))
+    positives = _l2_normalize(dynamic_roll(e1, rot))
     pos_sim = (anchors * positives).sum(1) / temperature
 
     ar = torch.arange(num, device=e0.device)
@@ -109,9 +133,9 @@ def _infonce_per_elem(e0, e1, permuted_1, q, rot, offsets, temperature,
     cols = []
     for off in offsets:
         # Negative column c is roll(permuted_1, -off): a roll, whose
-        # backward is a roll -- no scatter.
-        sim = (anchors * torch.roll(normed_1, -off, 0)).sum(1) / temperature
-        neg_rows = torch.roll(q, -off, 0)
+        # backward is a gather -- no scatter.
+        sim = (anchors * dynamic_roll(normed_1, off)).sum(1) / temperature
+        neg_rows = dynamic_roll(q, off)
         cols.append(sim.masked_fill(neg_rows == anchor_ids, float("-inf")))
     logits = torch.stack([pos_sim] + cols, dim=1)
     return -F.log_softmax(logits, dim=1)[:, 0]
@@ -122,8 +146,9 @@ def _infonce_per_elem_blocked(e0, e1, permuted_1, q, rot, offsets,
     """Row-blocked per-element InfoNCE: same values as
     :func:`_infonce_per_elem` with O(block) live transients. Every
     access is a cyclic shift, so each table gets a wrap copy of its
-    first ``block_rows`` rows and every block is a contiguous slice;
-    blocks are recomputed in the backward (activation checkpointing)."""
+    first ``block_rows`` rows and every block is a contiguous slice
+    (:func:`dynamic_slice`: the starts are device tensors); blocks are
+    recomputed in the backward (activation checkpointing)."""
     num = e0.shape[0]
     block = block_rows
     e0x = torch.cat([e0, e0[:block]])
@@ -133,40 +158,49 @@ def _infonce_per_elem_blocked(e0, e1, permuted_1, q, rot, offsets,
 
     def body(s, e0x, e1x, p1x):
         st = (s + rot) % num
-        a = _l2_normalize(e0x[st:st + block])
-        p = _l2_normalize(e1x[st:st + block])
+        a = _l2_normalize(dynamic_slice(e0x, st, block))
+        p = _l2_normalize(dynamic_slice(e1x, st, block))
         pos_sim = (a * p).sum(1) / temperature
         anchor_ids = (s + torch.arange(block, device=e0x.device) + rot) % num
         cols = []
         for off in offsets:
             so = (s + off) % num
-            nrm = _l2_normalize(p1x[so:so + block])
+            nrm = _l2_normalize(dynamic_slice(p1x, so, block))
             sim = (a * nrm).sum(1) / temperature
-            neg_rows = qx[so:so + block]
+            neg_rows = dynamic_slice(qx, so, block)
             cols.append(sim.masked_fill(neg_rows == anchor_ids, float("-inf")))
         logits = torch.stack([pos_sim] + cols, dim=1)
         return -F.log_softmax(logits, dim=1)[:, 0]
 
-    parts = [checkpoint(body, s, e0x, e1x, p1x, use_reentrant=False)
+    # Nothing in a block draws, so no RNG state is kept (restoring one
+    # is not allowed inside a CUDA graph capture).
+    parts = [checkpoint(body, s, e0x, e1x, p1x, use_reentrant=False,
+                        preserve_rng_state=False)
              for s in range(0, num, block)]
     return torch.cat(parts)[:num]
 
 
 def infonce(draws: InfoNCEDraws, embeds_0: torch.Tensor,
             embeds_1: torch.Tensor, n_neg: int = 8, temperature: float = 0.5,
-            group_size: int = 1000, block_rows: int | None = None
-            ) -> torch.Tensor:
+            group_size: int = 1000, block_rows: int | None = None,
+            rolls: torch.Tensor | None = None) -> torch.Tensor:
     """Cross-modal InfoNCE alignment (directional: anchors from
     ``embeds_0``). Paired rows are positives; ``n_neg + 1`` negatives
     per anchor with anchor collisions masked to -inf; the loss is the
     mean of per-``group_size`` group means over a padded fixed-shape
-    grouping, so the short last group carries a full group's weight."""
+    grouping, so the short last group carries a full group's weight.
+    ``rolls``, the (n_neg + 2,) int64 device vector of
+    :func:`infonce_rolls`, takes the place of the draws' ints (None:
+    made from them)."""
     num = min(embeds_0.shape[0], embeds_1.shape[0])
     if num == 0:
         return embeds_0.new_zeros(())
     if len(draws.offsets) != n_neg + 1:
         raise ValueError(f"expected {n_neg + 1} offsets, got "
                          f"{len(draws.offsets)}")
+    if rolls is None:
+        rolls = torch.tensor(infonce_rolls(draws), dtype=torch.int64,
+                             device=embeds_0.device)
     num_groups = -(-num // group_size)
     padded = num_groups * group_size
 
@@ -176,7 +210,7 @@ def infonce(draws: InfoNCEDraws, embeds_0: torch.Tensor,
     per_fn = (_infonce_per_elem_blocked if num > block_rows
               else _infonce_per_elem)
     per_elem = per_fn(embeds_0[:num], embeds_1[:num], permuted_1, draws.q,
-                      draws.rot, draws.offsets, temperature, block_rows)
+                      rolls[0], rolls[1:], temperature, block_rows)
 
     per_elem = F.pad(per_elem, (0, padded - num)).view(num_groups, group_size)
     pad_mask = (torch.arange(padded, device=per_elem.device) < num

@@ -1,4 +1,6 @@
-"""Profile the PyTorch port's layout epoch on one CUDA GPU.
+"""Profile the PyTorch port's layout epoch on one CUDA GPU: the captured
+CUDA-graph epoch that ``train_layout`` runs on the card against the eager
+loop, in turns.
 
     python3 profile_torch.py [--mode fit|invert] [--epochs 20] [--out DIR]
                              [--n_train 31744]
@@ -7,25 +9,31 @@
 synthetic pairs at 768 / 4096 dims, k=15, out_dim=64; ``--n_train
 131072`` for its CLI path; past 131,072 the scale ladder's data: bf16
 tables drawn on the card, 256 clusters) and profiles the fit layout.
-Where the layout's memory bounds engage (the attraction's slot scan, the
-per-modality recompute: ``--n_train 524288``) the epoch is timed with
-them and with every form whole, in turns (bounded, whole, whole,
-bounded), and both are printed. ``invert`` fits
-that model (60 epochs: the invert epoch's
-cost depends on shapes, not on how well the layout converged), embeds
-1,024 held-out texts and profiles the invert layout that reconstructs
-them as 4,096-d images (the ``embed_and_recon`` main path). Either mode
-runs ``--epochs`` layout epochs twice: once timed (host clock around a
-synchronized run) and once under ``torch.profiler``. Prints JSON lines:
-the card, the ms per epoch, the device-busy share (summed kernel time
-over the profiled wall time), peak device memory and the kernels that
-take the most device time. Writes the Chrome trace to ``--out``. Needs
-a GPU; imports nothing of JAX.
+``invert`` fits that model (60 epochs: the invert epoch's cost depends on
+shapes, not on how well the layout converged), embeds 1,024 held-out
+texts and profiles the invert layout that reconstructs them as 4,096-d
+images (the ``embed_and_recon`` main path).
+
+Each variant runs ``--epochs`` layout epochs: ``captured`` (one CUDA
+graph replay per epoch, what ``train_layout`` runs on CUDA) and
+``eager`` (``layout_graph_torch.eager_runner``: the same buffers, draws
+and update, one eager step per epoch), timed in turns (captured, eager,
+eager, captured) at ms per epoch between chunk ends (the capture's
+set-up, printed apart, stays out). Then each variant runs once under
+``torch.profiler``
+over the epochs after its first chunk. Prints JSON lines: the card, and
+per variant the ms per epoch, the device-busy share (summed kernel time
+over the profiled wall time), host launches per epoch
+(``cudaLaunchKernel`` / ``cuLaunchKernel`` / ``cudaGraphLaunch`` events),
+peak device memory and the kernels that take the most device time.
+Writes each variant's Chrome trace to ``--out``. Needs a GPU; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -38,7 +46,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("fit", "invert"), default="fit")
     ap.add_argument("--epochs", type=int, default=20)
-    ap.add_argument("--out", default="chiprun_out/profile")
+    ap.add_argument("--out", default="chip_smoke_out/profile")
     ap.add_argument("--n_train", type=int, default=31_744)
     args = ap.parse_args()
     n = args.n_train
@@ -47,7 +55,6 @@ def main() -> None:
     from multimodal_umap_tpu_torch import Config, MultimodalUMAP
     from multimodal_umap_tpu_torch.data.synthetic import (
         clustered_modalities, clustered_modalities_device)
-    from multimodal_umap_tpu_torch.models import layout as PL
     from multimodal_umap_tpu_torch.models.layout import (
         fit_task, query_task, train_layout)
 
@@ -86,78 +93,81 @@ def main() -> None:
                                   rhos=enc.rhos)
         tasks, statics, inits = [task], [static], [init]
 
-    def run(epochs):
+    import layout_graph_torch as LG
+
+    chunk = 5
+
+    def run(epochs, **kw):
         return train_layout(inits, tasks, statics, mode=args.mode,
                             epochs=epochs, num_rep=cfg.num_rep, lr=cfg.lr,
                             alpha=cfg.alpha, batch_size=cfg.batch_size,
-                            a=model.a, b=model.b)
+                            a=model.a, b=model.b, **kw)
 
-    bounds = (PL._ATTR_SLOT_BYTES, PL._MODALITY_REMAT_ROWS)
+    def variant(name):
+        return (LG.eager_runner() if name == "eager"
+                else contextlib.nullcontext())
 
-    def set_forms(whole):
-        PL._ATTR_SLOT_BYTES, PL._MODALITY_REMAT_ROWS = (
-            (1 << 62, 1 << 62) if whole else bounds)
-
-    def timed():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        run(args.epochs)
-        torch.cuda.synchronize()
-        return ((time.perf_counter() - t0) * 1e3 / args.epochs,
-                torch.cuda.max_memory_allocated() / 2**30)
-
-    rows = max(s.num_rows for s in statics)
-    engaged = args.mode == "fit" and (
-        rows * cfg.k_neighbors * cfg.out_dim * 4 > bounds[0]
-        or rows > bounds[1])
-    runs = {False: [], True: []}
-    for whole in (False, True) if engaged else (False,):
-        set_forms(whole)
-        run(2)  # warm-up
-    for whole in (False, True, True, False) if engaged else (False,):
-        set_forms(whole)
-        runs[whole].append(timed())
-    set_forms(False)
-    epoch_ms = sum(ms for ms, _ in runs[False]) / len(runs[False])
-    peak_gib = max(gib for _, gib in runs[False])
-    ab = {}
-    if engaged:
-        ab = {"bounded_runs_ms": [ms for ms, _ in runs[False]],
-              "whole_forms": {
-                  "epoch_ms": sum(ms for ms, _ in runs[True]) / 2,
-                  "runs_ms": [ms for ms, _ in runs[True]],
-                  "peak_mem_gib": max(gib for _, gib in runs[True])}}
-
+    names = ("captured", "eager")
+    for name in names:
+        with variant(name):
+            run(2)  # warm-up
+    runs = {name: [] for name in names}
+    for name in names + names[::-1]:
+        with variant(name):
+            runs[name].append(LG.timed_layout(
+                lambda **kw: run(args.epochs, **kw), chunk))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run(args.epochs)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # Kernel events only: an aten op's self device time repeats the time
-    # of the kernels it launched.
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-    print(json.dumps({
-        "mode": args.mode, "n_train": n, "epochs": args.epochs,
-        "epoch_ms": epoch_ms,
-        "peak_mem_gib": peak_gib,
-        **ab,
-        "profiled_wall_ms": wall_us / 1e3,
-        "device_busy_share": device_us / wall_us,
-        "kernel_launches_per_epoch": sum(e.count for e in events) / args.epochs,
-        "top_kernels": [{"name": e.key[:80], "count": e.count,
-                         "device_ms_per_epoch":
-                             e.self_device_time_total / 1e3 / args.epochs}
-                        for e in top],
-    }), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(
-        os.path.join(args.out, f"{args.mode}_layout_trace.json"))
+    for name in names:
+        prof = torch.profiler.profile(activities=acts)
+        wall = {}
+
+        def window(done, *_):
+            torch.cuda.synchronize()
+            if done == chunk:
+                prof.start()
+                wall["t0"] = time.perf_counter()
+            elif done == args.epochs:
+                wall["us"] = (time.perf_counter() - wall["t0"]) * 1e6
+                prof.stop()
+
+        with variant(name):
+            run(args.epochs, epoch_chunk=chunk, chunk_callback=window)
+        epochs = args.epochs - chunk
+        averages = prof.key_averages()
+        # Kernel events only: an aten op's self device time repeats the
+        # time of the kernels it launched.
+        events = [e for e in averages
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in events)
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+        host = {e.key: e.count / epochs for e in averages
+                if e.key in LG.LAUNCH_EVENTS + ("cudaMemcpyAsync",)}
+        timed = runs[name]
+        print(json.dumps({
+            "mode": args.mode, "n_train": n, "variant": name,
+            "epochs": args.epochs,
+            "epoch_ms": sum(r["ms_per_epoch"] for r in timed) / len(timed),
+            "runs_ms": [r["ms_per_epoch"] for r in timed],
+            "setup_seconds": [r["setup_seconds"] for r in timed],
+            "peak_above_live_gib": max(r["peak_above_live_gib"]
+                                       for r in timed),
+            "profiled_epochs": epochs,
+            "profiled_wall_ms": wall["us"] / 1e3,
+            "device_busy_share": device_us / wall["us"],
+            "device_ms_per_epoch": device_us / 1e3 / epochs,
+            "host_launches_per_epoch": sum(
+                v for k, v in host.items() if k in LG.LAUNCH_EVENTS),
+            "host_events_per_epoch": host,
+            "kernels_per_epoch": sum(e.count for e in events) / epochs,
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "device_ms_per_epoch":
+                                 e.self_device_time_total / 1e3 / epochs}
+                            for e in top],
+        }), flush=True)
+        prof.export_chrome_trace(
+            os.path.join(args.out, f"{args.mode}_{n}_{name}_trace.json"))
 
 
 if __name__ == "__main__":

@@ -22,7 +22,8 @@ size and each gated stage must stay below the gate :func:`reckoned_gates`
 derives from the code's own buffers; observed, not assumed: the kNN's
 column chunks from the tile kernel's launch signatures, the reverse-lookup
 and edge blocks and the recomputed attraction slots and modality losses
-from counted calls. Prints the card (``nvidia-smi`` name and power limit)
+from counted calls (the layout's are Python calls: on CUDA the epoch runs
+them only in its warm-up and capture, and the graph replays them). Prints the card (``nvidia-smi`` name and power limit)
 and one JSON line; exits non-zero on a failed check.
 
 ``--whole`` sets the port's bound constants past any size, so that every
@@ -314,7 +315,6 @@ def run_rung(n: int, device=None) -> tuple[dict, dict]:
     mean_mse = float(((_device_mean(model.data[1])[None] - images) ** 2)
                      .mean())
     fit_loss = model.loss_history["fit"]
-    epochs = cfg.train_epochs
     edges = 2 * n * k
     applies = calls.get("_adjacency_apply", 0)
     fit_sigs = [key for key in census if key[-1] == "fit"]
@@ -345,11 +345,10 @@ def run_rung(n: int, device=None) -> tuple[dict, dict]:
                 "engaged": applies > 0 and calls.get("_add_edges", 0)
                 == applies * -(-edges // PS._EDGE_BLOCK) > applies},
             "attraction_slot_scan": {
-                "slot_calls_per_epoch": calls.get("_attr_slot", 0) / epochs,
+                "slot_calls_traced": calls.get("_attr_slot", 0),
                 "engaged": calls.get("_attr_slot", 0) > 0},
             "modality_recompute": {
-                "calls_per_epoch": (calls.get("_fit_modality_loss", 0)
-                                    / epochs),
+                "calls_traced": calls.get("_fit_modality_loss", 0),
                 "engaged": calls.get("_fit_modality_loss", 0) > 0},
         },
         "tile_launches_by_signature": [

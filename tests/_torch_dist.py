@@ -197,6 +197,36 @@ def layout_engines_rank(mesh, mode, tasks_np, statics, inits_np, kw):
     return {"full": full, "ring": ring}
 
 
+def sharded_vs_single_rank(mesh, tasks_np, statics, inits_np, kw):
+    """The sharded fit engine's runner called directly (at one rank
+    ``train_layout`` takes the single-device runner) beside
+    ``train_layout`` on the same (seed, epoch) draws: both embeddings and
+    histories."""
+    from multimodal_umap_tpu_torch.models.layout import (
+        draw_epoch,
+        epoch_rng,
+        make_optimizer,
+        train_layout,
+    )
+    from multimodal_umap_tpu_torch.models.layout_sharded import (
+        sharded_chunk_runner,
+    )
+    from multimodal_umap_tpu_torch.parallel import ShardingPlan
+
+    tasks, inits = _tasks(ShardingPlan(mesh), tasks_np, inits_np)
+    single, s_hist = train_layout(inits, tasks, statics, mode="fit", **kw)
+    runner = sharded_chunk_runner(tuple(statics), "fit", kw["num_rep"],
+                                  kw["alpha"], kw["batch_size"], mesh)
+    params = [e.detach().clone().requires_grad_(True) for e in inits]
+    hist = runner(params, make_optimizer(params, kw["lr"]), tasks, kw["a"],
+                  kw["b"], lambda e: draw_epoch(
+                      epoch_rng(kw["seed"], e, params[0].device), tasks,
+                      statics, mode="fit", num_rep=kw["num_rep"],
+                      alpha=kw["alpha"]), 0, kw["epochs"])
+    return {"single": [_np(e) for e in single], "single_hist": _np(s_hist),
+            "sharded": [_np(p) for p in params], "sharded_hist": _np(hist)}
+
+
 def collectives_rank(mesh, n, k, d, q):
     """Recorded collectives of one fit epoch, of a 4-epoch transform
     chunk (full and ring), of a 3-epoch invert ring chunk, of the ring

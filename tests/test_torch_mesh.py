@@ -258,6 +258,20 @@ def test_sharded_fit_layout_matches_jax_sharded_engine(p, tmp_path):
                                    atol=1e-5)
 
 
+def test_sharded_fit_engine_at_one_rank_is_single_device(tmp_path):
+    # At one rank every term of the sharded fit loss is the single-device
+    # one, built in the same order: embeddings and losses bit-equal.
+    tasks_np, _, _, inits = _fit_tasks()
+    statics = [fit_task(_dense_t(tn), 32)[1] for tn in tasks_np]
+    kw = dict(epochs=5, num_rep=2, lr=0.05, alpha=0.5, batch_size=32,
+              a=A, b=B, seed=3)
+    (res,) = run_ranks(TD.sharded_vs_single_rank, 1, tmp_path, tasks_np,
+                       statics, inits, kw)
+    np.testing.assert_array_equal(res["sharded_hist"], res["single_hist"])
+    for ours, single in zip(res["sharded"], res["single"]):
+        np.testing.assert_array_equal(ours, single)
+
+
 def _dense_t(tn):
     from multimodal_umap_tpu_torch.ops.graph import DenseSymGraph
 
