@@ -3,16 +3,18 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and the checkout (it builds the kNN tile
-kernel from ``multimodal_umap_tpu_torch/csrc``); exits non-zero, with no
+kernel and the fit layout's term kernels from
+``multimodal_umap_tpu_torch/csrc``); exits non-zero, with no
 result line, on any failed phase, without a GPU, or outside the repo.
 Imports neither JAX nor the JAX package. Prints one JSON object per
 line:
 
 1. device -- the card (``nvidia-smi`` name and power limit) and the TF32
    flags; fails if float32 matmuls may use TF32;
-2. build -- builds the kernels (one ``nvcc`` of ``csrc/knn_tile.cu``),
-   prints the build seconds, each kernel's registers and spill bytes
-   from ``-Xptxas -v`` and, for both tile kernels, the count of ``HGMMA``
+2. build -- builds the kernels (one ``nvcc`` of ``csrc/knn_tile.cu`` and
+   ``csrc/layout_terms.cu``), prints the build seconds, each kernel's (and
+   each template instance's) registers and spill bytes from ``-Xptxas -v``
+   and, for both tile kernels, the count of ``HGMMA``
    (wgmma; in the f32 kernel those on TF32), ``UTMALDG`` (TMA load) and
    ``FFMA`` SASS instructions (``cuobjdump -sass``; the f32 kernel's
    FFMAs are its row norms and the selection's, not a product loop);
@@ -53,7 +55,10 @@ line:
    ``similarity_test`` and ``knn_test`` (k=5) on 1,024 held-out pairs at
    120 test epochs, ``trustworthiness_sampled`` on both modalities;
    kernel launches counted after fit, transform and knn_test; fails on
-   a non-finite metric, cosine < 0.9 or a kernel the path never ran;
+   a non-finite metric, cosine < 0.9 or a kernel the path never ran (the
+   tile kernel, the norm pre-pass, and the four layout-term kernels,
+   counted in the fit; the first layout call's inputs are kept for
+   phase 13);
 7. recon_path -- the rest of the library flow on the fitted model, with
    the launch counts set to 0 just before it: ``save_state_dict`` ->
    ``load_state_dict`` into a fresh model (every array bit-equal; archive
@@ -91,7 +96,8 @@ line:
    chunk -- the kernel's outputs and their merge copies -- at or above the
    table's f32 size), or a kernel mode the run never launched (bf16
    tables in the kernel's bf16 mode; ``approx`` runs its f32 mode in the
-   recon app's latent-space invert graph);
+   recon app's latent-space invert graph; the fit runs the four
+   layout-term kernels);
 10. engine_checks -- ``lobpcg`` on the CLI model's text graph, from
    ``--spectral lobpcg``'s operator and start block: the default run
    (the JAX package's tolerance, whose test scales with the row count)
@@ -117,8 +123,10 @@ line:
    ``knn_test`` (k=1) and ``embed_and_recon`` of 16 texts; prints phase
    seconds, each fit stage's peak memory above what was live before it
    beside its reckoned gate, which bounded forms engaged (kNN column
-   chunks, reverse-lookup and edge blocks, the attraction's slot scan,
-   the per-modality recompute) and the kernel launches per signature.
+   chunks, reverse-lookup and edge blocks, the per-modality recompute, and
+   the attraction kernel in place of the slot scan: launched, with the
+   layout stage's peak within the slot scan's 2.750 GiB) and the kernel
+   launches per signature.
    Fails on cosine < 0.9, a non-finite metric or fit loss, recon MSE not
    below the train-mean predictor's, a bounded form that did not engage,
    a gated stage at or above its gate, or a kernel never launched;
@@ -139,8 +147,23 @@ line:
    (k=5) -> ``embed_and_recon`` of 16 texts at full width, each tile
    kernel launch signature of rank 0 held against its plain version and
    timed. Fails on a disagreement, cosine < 0.99 or more than 0.005 from
-   the main path's, or a kernel the path never launched;
-13. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
+   the main path's, or a kernel the path never launched (the layout-term
+   kernels in both parts);
+13. layout_terms -- the fit layout's attraction (K2) and repulsion (K3)
+   kernels, forward and backward (``csrc/layout_terms.cu``), against
+   their plain PyTorch versions (autodiff, ``ops/layout_terms.py``, on
+   the same inputs cast to float64) at
+   the main path's first fit-layout call (its graph and draws: 31,744 x
+   64, k = 15, 8 rounds), at a rank's row range of it (row0 = 15,872, the
+   second half), at the scale rung's 524,288 x 64 (random graph and
+   draws of the same shape) and at 31,744 x 200 (an --out_dim past the
+   128 columns the kernels hold in registers; random graph and draws):
+   the loss within rtol 1e-5, the gradient of
+   the whole table within rtol 1e-5 plus 1e-5 of its largest entry, two
+   kernel runs bit-equal; each kernel's ms, the plain forward's and
+   backward's ms and the bound from the bytes and operations of these
+   inputs (library: none, no one PyTorch call computes a term);
+14. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
    (norm pre-pass, tile kernel, candidate permute + merge ``topk``,
    exact f32 re-score), and the tile kernel at the other main-path
    shapes (D=768; the 1,024-row transform block; the invert block, the
@@ -155,19 +178,25 @@ line:
    mode's bound is the larger of its bytes and its three TF32 passes at
    the tensor cores' TF32 rate; ``bound_fma_ms`` is one f32 pass on the
    CUDA cores' FMA pipe);
-14. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
+15. kernels -- ``{"kernels": [...]}``: time, bound, plain and library
     times of each kernel (the tile kernel's bf16 and f32 modes are its
     two entry points) at the main-path block shape -- the bf16 mode with
     its scale-path column chunk (8,192 x 32,768 at D = 4,096 and 768)
     beside it, the f32 mode with its launch on the CLI path -- and
     launches on the fit/eval path, the recon path, the f32 table path,
     the CLI path, the scale path and both mesh parts, and the bf16 mode
-    at the mesh path's fit ring steps (8,192 x 15,872 at both D);
-15. last line -- ``{"ok": true, "device": {...}}``.
+    at the mesh path's fit ring steps (8,192 x 15,872 at both D); and the
+    four layout-term kernels (``fit_attr``, ``fit_attr_bwd``, ``fit_rep``,
+    ``fit_rep_bwd``) at the main path's shape with the row range and the
+    scale rung beside, their launches on the fit/eval, CLI, scale and
+    both mesh paths (host launches: a captured epoch's replays run the
+    captured kernels again);
+16. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -261,10 +290,32 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# The fit layout's term kernels (csrc/layout_terms.cu) by the name the
+# kernels line gives them, and their counters in ops/layout_terms.py.
+TERM_KERNELS = {"fit_attr": "FIT_ATTR_LAUNCHES",
+                "fit_attr_bwd": "FIT_ATTR_BWD_LAUNCHES",
+                "fit_rep": "FIT_REP_LAUNCHES",
+                "fit_rep_bwd": "FIT_REP_BWD_LAUNCHES"}
+
+
 def reset_counts(KT) -> None:
-    """Sets every kernel's launch count to 0."""
+    """Sets every kernel's launch count to 0 (the tile kernel's, the norm
+    pre-pass's and the layout terms')."""
+    from multimodal_umap_tpu_torch.ops import layout_terms as LT
+
     KT.KNN_TILE_BF16_LAUNCHES = KT.KNN_TILE_F32_LAUNCHES = 0
     KT.ROW_NORM_LAUNCHES = 0
+    for counter in TERM_KERNELS.values():
+        setattr(LT, counter, 0)
+
+
+def term_launches() -> dict:
+    """Launches of the layout-term kernels since the last reset (host
+    launches: a captured epoch launches them in its warm-up and capture,
+    and each replay runs the captured ones again)."""
+    from multimodal_umap_tpu_torch.ops import layout_terms as LT
+
+    return {name: getattr(LT, c) for name, c in TERM_KERNELS.items()}
 
 
 def tile_launches(KT) -> int:
@@ -339,17 +390,24 @@ def bound_ms(nq, n, d, tile_k, bf16=True):
 
 
 KERNEL_FUNCTIONS = ("knn_tile_bf16_kernel", "knn_tile_f32_kernel",
-                    "rownorm_bf16_kernel")
+                    "rownorm_bf16_kernel", "fit_attr_fwd_kernel",
+                    "fit_attr_bwd_kernel", "fit_rep_fwd_kernel",
+                    "fit_rep_bwd_kernel")
 
 
 def ptxas_report(log: str) -> dict:
-    """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``."""
+    """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``; a
+    template instance is named with its argument (``fit_attr_fwd_kernel<2>``:
+    two of a row's values a lane)."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             cur = next((k for k in KERNEL_FUNCTIONS if k in m.group(1)),
                        m.group(1))
+            arg = re.search(r"ILi(\d+)E", m.group(1))
+            if arg and cur in KERNEL_FUNCTIONS:
+                cur = f"{cur}<{arg.group(1)}>"
             out[cur] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -380,6 +438,285 @@ def sass_counts(so_path, kernels) -> dict:
                      f.split("\n", 1)[0]), "")
         out[kernel] = {name: len(re.findall(pat, body))
                        for name, pat in SASS_PATTERNS.items()}
+    return out
+
+
+@contextlib.contextmanager
+def first_term_inputs(store: dict):
+    """Keeps the inputs of the first ``fit_attraction`` and
+    ``fit_repulsion`` calls in ``store["attr"]`` / ``store["rep"]``: the
+    first modality's in the first warm-up epoch of a fit layout (the
+    epoch's inits and draws), eager, before any capture. The counts stay
+    the wrappers' own."""
+    from multimodal_umap_tpu_torch.ops import layout_terms as LT
+
+    attr, rep = LT.fit_attraction, LT.fit_repulsion
+
+    def keep(name, **tensors):
+        if name not in store:
+            store[name] = {k: v.detach().clone() if isinstance(
+                v, torch.Tensor) else v for k, v in tensors.items()}
+
+    def observed_attr(embed, nbrs, coef, a, b, *, row0=0, rev=None,
+                      slot_bytes=None):
+        keep("attr", embed=embed, nbrs=nbrs, coef=coef, a=a, b=b)
+        return attr(embed, nbrs, coef, a, b, row0=row0, rev=rev,
+                    slot_bytes=slot_bytes)
+
+    def observed_rep(embed, pi, pi_inv, rolls, rep_coef, a, b, *, row0=0):
+        keep("rep", embed=embed, pi=pi, pi_inv=pi_inv, rolls=rolls,
+             rep_coef=rep_coef, a=a, b=b)
+        return rep(embed, pi, pi_inv, rolls, rep_coef, a, b, row0=row0)
+
+    LT.fit_attraction, LT.fit_repulsion = observed_attr, observed_rep
+    try:
+        yield store
+    finally:
+        LT.fit_attraction, LT.fit_repulsion = attr, rep
+
+
+# Kernel against plain (on the inputs cast to float64) on the card: loss
+# rtol; gradient rtol and atol per unit of the largest gradient entry (a
+# row's gradient sums signed terms, each rounded in float32 by the
+# kernels; their powf / logf round apart from the exact by an ulp or two).
+TERM_LOSS_RTOL, TERM_GRAD_RTOL, TERM_GRAD_ATOL = 1e-5, 1e-5, 1e-5
+
+
+def synthetic_terms(n: int, dev, seed: int = 0, d: int = 64) -> dict:
+    """Inputs of both terms at n rows of the fit layout's shape (k = 15,
+    D = 64 unless given, 8 rounds): normal rows, uniform neighbour ids,
+    about half the coefficients 0 (the main path keeps a slot with its
+    weight), a permutation and 8 offsets in disjoint strata
+    (layout._fit_rolls)."""
+    from multimodal_umap_tpu_torch.models.curve import get_ab_coeffs
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cfg_k, r = K, 8
+    embed = torch.randn(n, d, generator=g, device=dev)
+    nbrs = torch.randint(0, n, (n, cfg_k), generator=g, device=dev)
+    coef = torch.rand(n, cfg_k, generator=g, device=dev) * 1e-4
+    coef = coef * (torch.rand(n, cfg_k, generator=g, device=dev) < 0.5)
+    pi = torch.randperm(n, generator=g, device=dev)
+    pi_inv = torch.empty_like(pi)
+    pi_inv[pi] = torch.arange(n, device=dev)
+    stride = n // r
+    rolls = (torch.arange(r, device=dev) * stride
+             + torch.randint(0, stride, (r,), generator=g, device=dev)) % n
+    rep_coef = torch.rand(n, generator=g, device=dev) * 1e-4
+    a, b = get_ab_coeffs(0.1)  # Config's min_dist
+    return {"attr": {"embed": embed, "nbrs": nbrs, "coef": coef, "a": a,
+                     "b": b},
+            "rep": {"embed": embed, "pi": pi, "pi_inv": pi_inv,
+                    "rolls": rolls, "rep_coef": rep_coef, "a": a, "b": b}}
+
+
+def term_work(term: str, inp: dict, row0: int) -> dict:
+    """Compulsory bytes and operations of each kernel on these inputs
+    (each input read once, each output written once, only what the data
+    needs: slots and anchors whose coefficient is 0 read nothing): per
+    anchor-neighbour pair 3 D operations for the distance, 2 D more for
+    the gradient, and 40 for the curve."""
+    e = inp["embed"]
+    n, d = e.shape
+    if term == "attr":
+        nbrs, coef = inp["nbrs"], inp["coef"]
+        n_rows, k = nbrs.shape
+        live = coef != 0
+        pairs = int(live.sum())
+        anchors = torch.arange(row0, row0 + n_rows, device=e.device)
+        rows = int(torch.unique(torch.cat([anchors, nbrs[live]])).numel())
+        fwd = (rows * d * 4 + pairs * 8 + n_rows * k * 4 + n_rows * 4,
+               pairs * (3 * d + 40))
+        bwd = (n * d * 4 + pairs * 8 + n_rows * k * 4 + (n + 1) * 4
+               + n_rows * k * 4 + 4 + n * d * 4,
+               2 * pairs * (5 * d + 40))
+        # kept in-edges a row: the backward gives a row's to one warp
+        in_deg = torch.bincount(nbrs[live], minlength=n)
+        skew = {"max_in_degree": int(in_deg.max()),
+                "mean_in_degree": pairs / n}
+    else:
+        pi, rolls, rep_coef = inp["pi"], inp["rolls"], inp["rep_coef"]
+        n_rows, r = rep_coef.shape[0], rolls.shape[0]
+        anchors = (torch.nonzero(rep_coef != 0).reshape(-1) + row0)
+        pairs = int(anchors.numel()) * r
+        negs = pi[(anchors[:, None] + rolls[None, :]) % n].reshape(-1)
+        rows = int(torch.unique(torch.cat([anchors, negs])).numel())
+        fwd = (rows * d * 4 + pairs * 8 + r * 8 + n_rows * 4 + n_rows * 4,
+               pairs * (3 * d + 40))
+        bwd = (n * d * 4 + pairs * 8 + n * 8 + r * 8 + n_rows * 4 + 4
+               + n * d * 4, 2 * pairs * (5 * d + 40))
+        skew = {}
+    out = {**skew}
+    for name, (nbytes, ops) in (("fwd", fwd), ("bwd", bwd)):
+        t_b = nbytes / H100_BYTES_PER_S * 1e3
+        t_o = ops / H100_F32_FLOPS * 1e3
+        out[name] = {"bytes": nbytes, "operations": ops,
+                     "bound_ms": max(t_b, t_o),
+                     "bound_by": "bytes" if t_b >= t_o else "operations"}
+    return out
+
+
+def check_term(term: str, inp: dict, row0: int = 0, reps: int = 20) -> dict:
+    """One term's kernels against its plain version on these inputs cast
+    to float64 (the float32 plain autograd of the repulsion cancels for
+    far negatives, by about a s^b ulps, past the tolerance where every
+    pair is far, as at D = 200): the loss and the gradient of the whole
+    table (gradient output 1), two kernel runs bit-equal, and the times
+    of each kernel and of the plain version's forward and backward (in
+    float32, as the port runs it)."""
+    from multimodal_umap_tpu_torch.ops import layout_terms as LT
+
+    e, a, b = inp["embed"], inp["a"], inp["b"]
+    if term == "attr":
+        args = (inp["nbrs"], inp["coef"], a, b)
+        rev = LT.reverse_index(inp["nbrs"], e.shape[0])
+
+        def kernel(x):
+            return LT.fit_attraction(x, *args, row0=row0, rev=rev)
+
+        def plain(x):
+            return LT.fit_attraction_plain(x, *args, row0=row0)
+
+        def exact(x):
+            return LT.fit_attraction_plain(x, args[0], args[1].double(),
+                                           a, b, row0=row0)
+    else:
+        args = (inp["pi"], inp["pi_inv"], inp["rolls"], inp["rep_coef"], a, b)
+
+        def kernel(x):
+            return LT.fit_repulsion(x, *args, row0=row0)
+
+        def plain(x):
+            return LT.fit_repulsion_plain(x, *args, row0=row0)
+
+        def exact(x):
+            return LT.fit_repulsion_plain(x, *args[:3], args[3].double(), a,
+                                          b, row0=row0)
+
+    def run(fn, dtype=torch.float32):
+        x = e.detach().to(dtype, copy=True).requires_grad_(True)
+        loss = fn(x)
+        loss.backward()
+        return loss.detach().to(dtype), x.grad
+
+    v1, g1 = run(kernel)
+    v2, g2 = run(kernel)
+    torch.cuda.synchronize()
+    vp, gp = run(exact, torch.float64)
+    v1, g1 = v1.double(), g1.double()
+    scale = float(gp.abs().max())
+    excess = float(((g1 - gp).abs() - TERM_GRAD_RTOL * gp.abs()
+                    - TERM_GRAD_ATOL * scale).max())
+    loss_rel = float((v1 - vp).abs() / vp.abs())
+    line = {
+        "rows": list(e.shape), "row0": row0,
+        "anchor_rows": int(args[0].shape[0] if term == "attr"
+                           else args[3].shape[0]),
+        "loss": float(v1), "loss_plain": float(vp), "loss_rel_err": loss_rel,
+        "loss_abs_err": float((v1 - vp).abs()),
+        "grad_max_abs_err": float((g1 - gp).abs().max()),
+        "grad_max_abs": scale,
+        "bit_equal_twice": bool(torch.equal(v1.float(), v2)
+                                and torch.equal(g1.float(), g2)),
+        "ok": bool(loss_rel <= TERM_LOSS_RTOL and excess <= 0
+                   and torch.isfinite(g1).all())}
+    line["ok"] = line["ok"] and line["bit_equal_twice"]
+    del g1, g2, gp
+
+    def fwd(fn):
+        with torch.no_grad():
+            fn(e)
+
+    def bwd_of(fn):
+        x = e.detach().clone().requires_grad_(True)
+        loss = fn(x)
+        return lambda: torch.autograd.grad(loss, x, retain_graph=True)
+
+    line["ms"] = {"fwd": cuda_ms(lambda: fwd(kernel), reps),
+                  "bwd": cuda_ms(bwd_of(kernel), reps)}
+    plain_reps = max(2, reps // 4)
+    line["plain_ms"] = {"fwd": cuda_ms(lambda: fwd(plain), plain_reps),
+                        "bwd": cuda_ms(bwd_of(plain), plain_reps)}
+    line["work"] = term_work(term, inp, row0)
+    return line
+
+
+def layout_terms(main_inputs: dict, dev) -> dict:
+    """Phase 13 (see the module docstring): each term's kernels against
+    its plain version at the main path's first fit-layout call, at a
+    rank's row range of it (the second half: row0 = N / 2, as rank 1 of
+    two reads the gathered table), at the scale rung's 524,288 x 64 and
+    at the main path's rows with an --out_dim past 128 (D = 200: the
+    kernels' instance that holds no row in registers)."""
+    out = {"phase": "layout_terms", "library": "none (no one call)",
+           "tolerance": {"loss_rtol": TERM_LOSS_RTOL,
+                         "grad_rtol": TERM_GRAD_RTOL,
+                         "grad_atol_per_max": TERM_GRAD_ATOL}}
+    n = main_inputs["attr"]["embed"].shape[0]
+    half = n // 2
+    ranged = {
+        "attr": {**main_inputs["attr"],
+                 "nbrs": main_inputs["attr"]["nbrs"][half:].contiguous(),
+                 "coef": main_inputs["attr"]["coef"][half:].contiguous()},
+        "rep": {**main_inputs["rep"],
+                "rep_coef": main_inputs["rep"]["rep_coef"][half:]
+                .contiguous()}}
+    scale = synthetic_terms(N_SCALE, dev)
+    for term in ("attr", "rep"):
+        out[term] = {
+            "main": check_term(term, main_inputs[term]),
+            "row_range": check_term(term, ranged[term], row0=half),
+            "scale": check_term(term, scale[term], reps=10)}
+    del scale
+    wide = synthetic_terms(n, dev, seed=1, d=WIDE_D)
+    for term in ("attr", "rep"):
+        out[term]["wide"] = check_term(term, wide[term], reps=5)
+    del wide
+    torch.cuda.empty_cache()
+    return out
+
+
+# An --out_dim past the 128 columns that the kernels hold in registers
+WIDE_D = 200
+
+# Where each term kernel's work sits in the JAX package: XLA-fused
+# functions inside the jitted epoch (no pallas_call).
+TERM_REPLACES = {
+    "attr": "multimodal_umap_tpu/models/layout.py:252",
+    "rep": "multimodal_umap_tpu/models/layout.py:288"}
+
+
+def term_entries(tline: dict, by_path: dict) -> list[dict]:
+    """The kernels line's entries of the four layout-term kernels at the
+    main path's shape, with the row range and the scale rung beside."""
+    out = []
+    for name in TERM_KERNELS:
+        term = "attr" if name.startswith("fit_attr") else "rep"
+        way = "bwd" if name.endswith("_bwd") else "fwd"
+
+        def numbers(v):
+            return {"max_abs_err": (v["grad_max_abs_err"] if way == "bwd"
+                                    else v["loss_abs_err"]),
+                    "ms": v["ms"][way], "plain_ms": v["plain_ms"][way],
+                    "bound_ms": v["work"][way]["bound_ms"],
+                    "bound_by": v["work"][way]["bound_by"]}
+
+        paths = {p: c[name] for p, c in by_path.items()}
+        main = tline[term]["main"]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "multimodal_umap_tpu_torch/csrc/layout_terms.cu",
+            "replaces": TERM_REPLACES[term],
+            "replaces_function": ("_fit_attraction" if term == "attr"
+                                  else "_fit_repulsion")
+            + " (XLA-fused in the jitted epoch; no pallas_call)",
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            **numbers(main), "library_ms": None,
+            "shape": {"rows": main["rows"], "anchor_rows": main["anchor_rows"]},
+            "at_row_range": {"row0": tline[term]["row_range"]["row0"],
+                             **numbers(tline[term]["row_range"])},
+            "at_scale": {"rows": tline[term]["scale"]["rows"],
+                         **numbers(tline[term]["scale"])}})
     return out
 
 
@@ -517,7 +854,7 @@ def cli_path(dev, out_dir):
             "--save_path", save_path, "--log_dir", log_dir]
     # An observer around the wrapper (``knn_tiled`` looks it up at each
     # call): it keeps the inputs of the first launch of each signature,
-    # so that phase 13 holds the kernel against its plain version at
+    # so that phase 14 holds the kernel against its plain version at
     # every shape this path gave it. The counts stay the wrapper's own.
     census = {}
     wrapper = KT.knn_tile
@@ -550,7 +887,7 @@ def cli_path(dev, out_dir):
     seconds = time.perf_counter() - t0
     launches = {"knn_tile_bf16": KT.KNN_TILE_BF16_LAUNCHES,
                 "knn_tile_f32": KT.KNN_TILE_F32_LAUNCHES,
-                "knn_rownorm": KT.ROW_NORM_LAUNCHES}
+                "knn_rownorm": KT.ROW_NORM_LAUNCHES, **term_launches()}
     peak_run = torch.cuda.max_memory_allocated() - base
 
     tables = sum(d.numel() * d.element_size() for d in model.data)
@@ -791,7 +1128,8 @@ def main() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": KT.BUILD_SECONDS, "ptxas": ptxas,
           "sass_counts": sass})
-    check(set(ptxas) >= set(KERNEL_FUNCTIONS), "ptxas report incomplete")
+    check(all(any(k == f or k.startswith(f + "<") for k in ptxas)
+              for f in KERNEL_FUNCTIONS), "ptxas report incomplete")
     check(all(v.get("spill_bytes") == 0 for v in ptxas.values()),
           "a kernel spills registers")
     check(sass["knn_tile_bf16_kernel"]["HGMMA"] > 0
@@ -946,10 +1284,12 @@ def main() -> None:
     launches = {}
     phases = {}
     t0 = time.perf_counter()
-    model = train(train_np, cfg, device=dev)
+    with first_term_inputs({}) as main_terms:
+        model = train(train_np, cfg, device=dev)
     torch.cuda.synchronize()
     phases["train"] = time.perf_counter() - t0
     launches["after_fit"] = tile_launches(KT)
+    main_term_launches = term_launches()
     t0 = time.perf_counter()
     cosine = similarity_test(test_np, cfg, model, return_values=True,
                              quiet=True)
@@ -980,6 +1320,7 @@ def main() -> None:
           "cosine": cosine, "knn5": knn5, "trust": trust,
           "knn_tile_launches": launches,
           "row_norm_launches": norm_launches,
+          "layout_term_launches": main_term_launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
     check(embeds_ok, "fit embeddings not finite or of the wrong shape")
     check(all(np.isfinite(v) for v in [cosine, knn5, *trust, *fit_loss]),
@@ -991,6 +1332,9 @@ def main() -> None:
     check(launches["after_knn_test"] > launches["after_transform"],
           "knn_test launched no kNN kernel")
     check(norm_launches > 0, "the main path launched no norm pre-pass")
+    check(all(v > 0 for v in main_term_launches.values()),
+          f"the main path left a layout-term kernel unlaunched: "
+          f"{main_term_launches}")
 
     # 7. the recon path (save/load, embed_and_recon, crossmodal_recon)
     torch.cuda.synchronize()
@@ -1083,13 +1427,13 @@ def main() -> None:
     sline, scale_census = ladder.run_rung(N_SCALE, dev)
     scale_launches = {"knn_tile_bf16": KT.KNN_TILE_BF16_LAUNCHES,
                       "knn_tile_f32": KT.KNN_TILE_F32_LAUNCHES,
-                      "knn_rownorm": KT.ROW_NORM_LAUNCHES}
+                      "knn_rownorm": KT.ROW_NORM_LAUNCHES, **term_launches()}
     scale_fails = ladder.failures(sline)
     sline.update(cut="none", launches=scale_launches, failures=scale_fails)
     emit(sline)
     check(not scale_fails, "scale path: " + "; ".join(scale_fails))
-    check(scale_launches["knn_tile_bf16"] > 0
-          and scale_launches["knn_rownorm"] > 0,
+    check(all(scale_launches[k] > 0 for k in ("knn_tile_bf16", "knn_rownorm",
+                                               *TERM_KERNELS)),
           f"scale path left a kernel unlaunched: {scale_launches}")
 
     # 12. the mesh path: NCCL at world size 1 in process, then two gloo
@@ -1109,8 +1453,22 @@ def main() -> None:
     check(sorted(s["D"] for s in ring_steps if s["exclude_self"])
           == sorted(DIMS), "mesh path: no fit ring step of "
           f"{BLOCK_ROWS} rows at D = {DIMS}")
+    mesh_terms = {part: mesh_launches[f"{part}_layout_terms"]
+                  for part in ("nccl_world1", "gloo_two_ranks")}
+    check(all(v > 0 for part in mesh_terms.values() for v in part.values()),
+          f"mesh path left a layout-term kernel unlaunched: {mesh_terms}")
 
-    # 13. knn_tiled's stages at the main-path block (rows [0, 8192) of the
+    # 13. the fit layout's term kernels against their plain versions at
+    # the main path's first layout call, a rank's row range of it and the
+    # scale rung's shape
+    tline = layout_terms(main_terms, dev)
+    emit(tline)
+    bad = [f"{term} {shape}" for term in ("attr", "rep")
+           for shape, v in tline[term].items() if not v["ok"]]
+    check(not bad, f"layout-term kernels disagree with plain: {bad}")
+    del main_terms
+
+    # 14. knn_tiled's stages at the main-path block (rows [0, 8192) of the
     # D=4096 fit graph, bf16), and the tile kernel at the other shapes,
     # each also held against its plain version there
     from multimodal_umap_tpu_torch.ops.knn import _exact_rescore_sq
@@ -1239,7 +1597,7 @@ def main() -> None:
           f"scale path: no fit chunk launch of {BLOCK_ROWS} x "
           f"{KT.COL_BLOCK} at D = {DIMS}")
 
-    # 14. kernels line: the fit graph's main-path block at D=4096, bf16,
+    # 15. kernels line: the fit graph's main-path block at D=4096, bf16,
     # with its column chunk on the scale path (8,192 x COL_BLOCK, D = 4,096
     # and 768) beside it; f32 mode at the same block (phase 8 drives it
     # there), with its launch on the CLI path (the recon app's 16 x
@@ -1337,7 +1695,10 @@ def main() -> None:
         "library_ms": None,
         "shape": {"rows": [BLOCK_ROWS, N_TRAIN], "D": DIMS[1],
                   "mode": "bf16"},
-    }]}), flush=True)
+    }, *term_entries(tline, {
+        "fit_eval": main_term_launches, "cli": cli_launches,
+        "scale": scale_launches, "mesh_nccl": mesh_terms["nccl_world1"],
+        "mesh_gloo": mesh_terms["gloo_two_ranks"]})]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

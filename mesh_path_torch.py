@@ -36,6 +36,7 @@ prints the line and fails on any. Imports nothing of JAX.
 from __future__ import annotations
 
 import datetime
+import faulthandler
 import json
 import multiprocessing
 import os
@@ -52,6 +53,7 @@ N_RECON = 16
 LAYOUT_EPOCHS = 20
 RANKS = 2
 TIMEOUT_S = 600
+STACK_DUMP_LEAD_S = 30  # ranks dump their stacks this long before it
 
 
 def _sync():
@@ -101,6 +103,7 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
         make_optimizer,
         query_task,
         train_layout,
+        with_reverse_index,
     )
     from multimodal_umap_tpu_torch.models.layout_sharded import (
         sharded_chunk_runner,
@@ -234,7 +237,8 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
 
         single, hist_s = single_run()
         # the single-device engine's own spread between two runs on the
-        # card (index_add_ sums in atomic order); the second is timed
+        # card (0 unless a kernel of the epoch sums in atomic order: the
+        # fit terms' kernels do not); the second is timed
         t0 = time.perf_counter()
         again, _ = single_run()
         _sync()
@@ -243,10 +247,16 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
                                       cfg.alpha, cfg.batch_size, mesh)
         params = [e.detach().clone().requires_grad_(True) for e in inits]
         opt = make_optimizer(params, cfg.lr)  # train_layout's update
+        # a direct caller of the runner builds the attraction kernel's
+        # reverse index itself (train_layout does it for its own runs)
+        sharded_tasks = with_reverse_index(tasks, statics)
+        CS.reset_counts(KT)  # the sharded engine's own term launches
         t0 = time.perf_counter()
-        hist_m = runner(params, opt, tasks, a, b, draws, 0, LAYOUT_EPOCHS)
+        hist_m = runner(params, opt, sharded_tasks, a, b, draws, 0,
+                        LAYOUT_EPOCHS)
         _sync()
         t_mesh = time.perf_counter() - t0
+        line["layout_term_launches"] = CS.term_launches()
 
         def excess(xs, ys, rtol, atol):
             return max(float(((x.detach() - y).abs() - rtol * y.abs()
@@ -285,7 +295,8 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
         # recorded collectives: one fit epoch, one 4-epoch transform chunk
         table = n_train * cfg.out_dim * 4
         with recording() as ops:
-            runner(params, opt, tasks, a, b, draws, LAYOUT_EPOCHS, 1)
+            runner(params, opt, sharded_tasks, a, b, draws, LAYOUT_EPOCHS,
+                   1)
         fit_s = collective_summary(ops)
         enc = ModalityEncoder(K, cfg.out_dim)
         nbrs, weights, q_init = enc.transform_graph(
@@ -329,8 +340,18 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
 
 def _rank_main(rank: int, world: int, store: str, out: str, device: str,
                sizes: tuple, cfg_kw: dict) -> None:
-    """One rank of part (b): writes ``out.<rank>.json``."""
+    """One rank of part (b): writes ``out.<rank>.json``. Every rank's
+    stacks go to ``out.<rank>.stack`` shortly before the parent's
+    deadline, so a hang reports where each rank waits."""
+    # The ranks share this host: gloo's pairs connect over the loopback
+    # device, not the address the host name resolves to (a lookup, and
+    # a route, that a sealed machine need not offer).
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    stack = None
     try:
+        stack = open(f"{out}.{rank}.stack", "w")
+        faulthandler.dump_traceback_later(TIMEOUT_S - STACK_DUMP_LEAD_S,
+                                          file=stack)
         _rank_body(rank, world, store, out, device, sizes, cfg_kw)
     except BaseException:
         import traceback
@@ -338,6 +359,10 @@ def _rank_main(rank: int, world: int, store: str, out: str, device: str,
         with open(f"{out}.{rank}.err", "w") as f:
             f.write(traceback.format_exc())
         raise
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        if stack is not None:
+            stack.close()
 
 
 def _rank_body(rank: int, world: int, store: str, out: str, device: str,
@@ -412,7 +437,7 @@ def _rank_body(rank: int, world: int, store: str, out: str, device: str,
         KT.knn_tile = wrapper
     launches = {"knn_tile_bf16": KT.KNN_TILE_BF16_LAUNCHES,
                 "knn_tile_f32": KT.KNN_TILE_F32_LAUNCHES,
-                "knn_rownorm": KT.ROW_NORM_LAUNCHES}
+                "knn_rownorm": KT.ROW_NORM_LAUNCHES, **CS.term_launches()}
     by_shape = {}
     for kind, shape, nbytes in train_ops:
         entry = by_shape.setdefault(f"{kind} {shape}", [0, 0])
@@ -486,6 +511,7 @@ def gloo_two_ranks(out_dir, device: str = "cuda:0",
     """Part (b); returns (the JSON line, failures, the launches summed
     over the ranks). ``device``, ``sizes`` (train, test pairs) and
     ``cfg_kw`` (``Config`` fields) cut it for a rehearsal on the CPU."""
+    os.makedirs(out_dir, exist_ok=True)
     tag = uuid.uuid4().hex[:8]
     store = os.path.abspath(os.path.join(out_dir, f"gloo_store_{tag}"))
     out = os.path.abspath(os.path.join(out_dir, f"gloo_rank_{tag}"))
@@ -506,11 +532,14 @@ def gloo_two_ranks(out_dir, device: str = "cuda:0",
             p.kill()
             p.join()
     seconds = time.perf_counter() - t0
-    fails = [f"rank {r} hung past {TIMEOUT_S} s" for r in hung]
-    fails += [f"rank {r} exited {p.exitcode}: " + (
-        open(f"{out}.{r}.err").read()[-2000:]
-        if os.path.exists(f"{out}.{r}.err") else "")
-        for r, p in enumerate(procs) if p.exitcode and r not in hung]
+    def tail(path, n=2000):
+        return open(path).read()[-n:] if os.path.exists(path) else ""
+
+    fails = [f"rank {r} hung past {TIMEOUT_S} s; its error: "
+             f"{tail(f'{out}.{r}.err')!r}; its stacks: "
+             f"{tail(f'{out}.{r}.stack', 3000)!r}" for r in hung]
+    fails += [f"rank {r} exited {p.exitcode}: " + tail(f"{out}.{r}.err")
+              for r, p in enumerate(procs) if p.exitcode and r not in hung]
     if fails:
         return {"part": "gloo_two_ranks", "seconds": seconds}, fails, {}
     ranks = []
@@ -539,13 +568,19 @@ def gloo_two_ranks(out_dir, device: str = "cuda:0",
                for s in r0["signatures"]):
         fails.append("tile kernel disagrees with plain at a ring-step "
                      "signature")
-    if not (launches["knn_tile_bf16"] > 0 and launches["knn_rownorm"] > 0):
-        fails.append(f"the mesh path launched no kernel: {launches}")
+    import chip_smoke as CS
+
+    if not all(launches[k] > 0 for k in ("knn_tile_bf16", "knn_rownorm",
+                                         *CS.TERM_KERNELS)):
+        fails.append(f"the mesh path left a kernel unlaunched: {launches}")
     return line, fails, launches
 
 
 def run(train_np, test_np, dev, out_dir, main_cosine: float | None):
-    """Both parts: (the phase's JSON line, failures, launches by part)."""
+    """Both parts: (the phase's JSON line, failures, launches by part:
+    the tile kernel's, and the layout-term kernels' of each part)."""
+    import chip_smoke as CS
+
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     a_line, fails = nccl_world1(train_np, test_np, dev, out_dir)
@@ -562,7 +597,11 @@ def run(train_np, test_np, dev, out_dir, main_cosine: float | None):
     line = {"phase": "mesh_path", "nccl_world1": a_line,
             "gloo_two_ranks": b_line, "failures": fails}
     launches = {"nccl_world1": a_line.get("ring_tile_launches", 0),
-                "gloo_two_ranks": b_launches}
+                "gloo_two_ranks": b_launches,
+                "nccl_world1_layout_terms": a_line.get(
+                    "layout_term_launches", dict.fromkeys(CS.TERM_KERNELS, 0)),
+                "gloo_two_ranks_layout_terms": {
+                    k: b_launches.get(k, 0) for k in CS.TERM_KERNELS}}
     return line, fails, launches
 
 

@@ -16,13 +16,16 @@ the fused epoch engine). Semantics:
 
 The fit graph lives in its forward (N, k) layout: transposed copies are
 per-slot Bernoulli masks and coefficients, so the loss is a sum over
-forward slots of (c_fwd + c_bwd) * f(x_i, x_j) and the neighbor gather
-is the only gradient aggregation (an ``index_add_`` in the backward).
-Fit repulsion negatives are rolls of ONE randomly permuted copy of the
-table (round r's negative for row i is permuted[(i + off_r) % n]);
-transform and invert keep iid uniform negatives. Invert mode runs the
-inverse attract/repel losses against the frozen training data with the
-fit-time bandwidths (sigmas, rhos) of the reference rows.
+forward slots of (c_fwd + c_bwd) * f(x_i, x_j). Fit repulsion negatives
+are rolls of ONE randomly permuted copy of the table (round r's negative
+for row i is permuted[(i + off_r) % n]). Both terms are
+``ops.layout_terms``': on the card fused kernels with a gather-only
+backward (the attraction's in-edges through a transposed index built
+once with the fit task), on the CPU autodiff PyTorch (the neighbour
+gather's backward an ``index_add_``, rolls as gathers). Transform and
+invert keep iid uniform negatives. Invert mode runs the inverse
+attract/repel losses against the frozen training data with the fit-time
+bandwidths (sigmas, rhos) of the reference rows.
 
 Randomness is explicit: every loss takes its draws as tensors
 (:class:`FitDraws`, :class:`QueryDraws`, ``losses.InfoNCEDraws``), and
@@ -31,7 +34,8 @@ from (seed, epoch), so a run resumed at ``start_epoch`` replays the
 draws an uninterrupted run would have used. ``deterministic=True``
 replaces Bernoulli keeps with their expectation. The drawn roll offsets
 reach the loss as one int64 device vector (:func:`pack_rolls`), read by
-gathers (``scatter_free.dynamic_roll``), as JAX traces them.
+the repulsion kernels or by gathers (``scatter_free.dynamic_roll``), as
+JAX traces them.
 
 ``train_layout`` runs the single-device epochs on CUDA as one captured
 CUDA graph replayed once per epoch (:func:`_graph_chunk_runner`, the
@@ -49,15 +53,12 @@ import os
 import typing
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
+from ..ops import layout_terms as LT
 from ..ops import losses as L
 from ..ops.graph import DenseSymGraph
-from ..ops.scatter_free import (
-    dynamic_roll,
-    permutation_gather,
-    random_permutation_pair,
-)
+from ..ops.layout_terms import _recompute
+from ..ops.scatter_free import random_permutation_pair
 
 
 class LayoutTask(typing.NamedTuple):
@@ -75,6 +76,9 @@ class LayoutTask(typing.NamedTuple):
     ref: torch.Tensor | None
     sigmas: torch.Tensor | None = None
     rhos: torch.Tensor | None = None
+    # fit on the card: ``layout_terms.reverse_index`` of ``nbrs`` over the
+    # table's rows (built only by :func:`with_reverse_index`)
+    rev: typing.Any = None
 
 
 class TaskStatic(typing.NamedTuple):
@@ -280,10 +284,10 @@ def _inv_window_coef(row_cnt, batch_size: int, num_windows: int
     return inv[:, None].expand(num_windows, batch_size).reshape(-1)[:n]
 
 
-# Above this many bytes of the (N, k, D) attraction gather the fit loss
-# loops over the k neighbour slots, each recomputed in the backward
+# Above this many bytes of the (N, k, D) attraction gather the plain fit
+# loss loops over the k neighbour slots, each recomputed in the backward
 # (multimodal_umap_tpu/models/layout.py:183): per-slot transients are
-# (N, D).
+# (N, D). The CUDA kernel never makes the gather, so this bounds the CPU.
 _ATTR_SLOT_BYTES = 1 << 30
 
 # Above this many rows each modality's fit loss is recomputed in the
@@ -292,24 +296,23 @@ _ATTR_SLOT_BYTES = 1 << 30
 _MODALITY_REMAT_ROWS = 1 << 18
 
 
-def _recompute(fn, *args, **kwargs):
-    """``fn(*args, **kwargs)`` whose residuals are recomputed in the
-    backward. Its inputs carry every random draw, so no RNG state is
-    kept for the recompute."""
-    return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False, **kwargs)
+def with_reverse_index(tasks, statics):
+    """Fit tasks on the card with the transposed index of their neighbour
+    ids (``layout_terms.reverse_index`` over the table's rows), which the
+    attraction kernel's backward reads. The one place it is built:
+    :func:`train_layout` calls this, and so does a direct caller of the
+    sharded engine's runner, once for all epochs and before any capture,
+    since the graph is fixed. A task that has it keeps it."""
+    return tuple(
+        t._replace(rev=LT.reverse_index(t.nbrs, s.num_rows))
+        if t.rev is None and t.nbrs.is_cuda
+        else t for t, s in zip(tasks, statics))
 
 
-def _fit_modality_loss(embed, task: LayoutTask, static: TaskStatic,
-                       draws: FitDraws, *, a, b, num_rep: int,
-                       batch_size: int, deterministic: bool,
-                       slot_bytes: int | None = None,
-                       rolls: torch.Tensor | None = None) -> torch.Tensor:
-    """``rolls``: the (num_rep,) int64 device vector of the repulsion
-    offsets (None: made from ``draws``' ints)."""
-    if rolls is None:
-        rolls = torch.tensor(_fit_rolls(draws, static, num_rep),
-                             dtype=torch.int64, device=embed.device)
+def _fit_coefs(task: LayoutTask, static: TaskStatic, draws: FitDraws, *,
+               batch_size: int, deterministic: bool):
+    """One epoch's (N, k) attraction and (N,) repulsion coefficients:
+    each kept entry's window weight 1/(cnt_window * W)."""
     if deterministic:
         keep_f = task.weights
         keep_b = task.weights * task.bwd_valid.float()
@@ -320,59 +323,38 @@ def _fit_modality_loss(embed, task: LayoutTask, static: TaskStatic,
     # Kept-entry counts anchored at each row: forward slots directly,
     # transposed slots grouped by column (no gradient path).
     bwd_cnt = torch.zeros(static.num_rows, dtype=torch.float32,
-                          device=embed.device).index_add_(
+                          device=task.nbrs.device).index_add_(
         0, task.nbrs.reshape(-1), keep_b.reshape(-1))
     rowcnt = keep_f.sum(1) + bwd_cnt
     inv_row = _inv_window_coef(rowcnt, batch_size, static.num_windows)
+    # Both copies of a pair share f(x_i, x_j); the forward copy is
+    # windowed by i, the transposed copy by j.
+    coef = keep_f * inv_row[:, None] + keep_b * inv_row[task.nbrs]
+    return coef, rowcnt * inv_row
 
-    loss_attr = _fit_attraction(embed, task, keep_f, keep_b, inv_row,
-                                a=a, b=b, slot_bytes=slot_bytes)
+
+def _fit_modality_loss(embed, task: LayoutTask, static: TaskStatic,
+                       draws: FitDraws, *, a, b, num_rep: int,
+                       batch_size: int, deterministic: bool,
+                       slot_bytes: int | None = None,
+                       rolls: torch.Tensor | None = None) -> torch.Tensor:
+    """``rolls``: the (num_rep,) int64 device vector of the repulsion
+    offsets (None: made from ``draws``' ints). The attraction and the
+    repulsion are ``ops.layout_terms``' (kernels on the card)."""
+    if rolls is None:
+        rolls = torch.tensor(_fit_rolls(draws, static, num_rep),
+                             dtype=torch.int64, device=embed.device)
+    coef, rep_coef = _fit_coefs(task, static, draws, batch_size=batch_size,
+                                deterministic=deterministic)
+    loss_attr = LT.fit_attraction(
+        embed, task.nbrs, coef, a, b, rev=task.rev,
+        slot_bytes=_ATTR_SLOT_BYTES if slot_bytes is None else slot_bytes)
     if num_rep == 0:
         return loss_attr
-    return loss_attr + _fit_repulsion(embed, draws, rolls, rowcnt, inv_row,
-                                      a=a, b=b, num_rep=num_rep)
-
-
-def _fit_attraction(embed, task, keep_f, keep_b, inv_row, *, a, b,
-                    slot_bytes: int | None = None):
-    # Both copies of a pair share f(x_i, x_j); the forward copy is
-    # windowed by i, the transposed copy by j. The plain (N, k, D)
-    # gather's backward is the modality's one index_add_. Past
-    # ``slot_bytes`` (default _ATTR_SLOT_BYTES) of that gather the k
-    # slots run one at a time, each recomputed in the backward: k
-    # index_add_s of (N, D) instead of one of (N*k, D).
-    coef = keep_f * inv_row[:, None] + keep_b * inv_row[task.nbrs]
-    n, k = task.nbrs.shape
-    slot_bytes = _ATTR_SLOT_BYTES if slot_bytes is None else slot_bytes
-    if n * k * embed.shape[1] * 4 > slot_bytes:
-        nbrs_t, coef_t = task.nbrs.T.contiguous(), coef.T.contiguous()
-        loss = embed.new_zeros(())
-        for m in range(k):
-            loss = loss + _recompute(_attr_slot, embed, nbrs_t[m],
-                                     coef_t[m], a, b)
-        return loss
-    y = embed[task.nbrs]  # (N, k, D)
-    attr = L.umap_attr(embed[:, None, :], y, a, b)  # (N, k)
-    return (coef * attr).sum()
-
-
-def _attr_slot(embed, nbrs_m, coef_m, a, b):
-    """One neighbour slot's attraction: (N,) ids and coefficients."""
-    return (coef_m * L.umap_attr(embed, embed[nbrs_m], a, b)).sum()
-
-
-def _fit_repulsion(embed, draws: FitDraws, rolls, rowcnt, inv_row, *,
-                   a, b, num_rep):
     # Round r's negative for row i is permuted[(i + rolls[r]) % n]
     # (:func:`_fit_rolls`).
-    rep_coef = rowcnt * inv_row
-    permuted = permutation_gather(embed, draws.pi, draws.pi_inv)
-    rep_sum = torch.zeros(embed.shape[0], dtype=torch.float32,
-                          device=embed.device)
-    for r in range(num_rep):
-        rep_sum = rep_sum + L.umap_rep(embed, dynamic_roll(permuted, rolls[r]),
-                                       a, b)
-    return (rep_coef * (rep_sum / num_rep)).sum()
+    return loss_attr + LT.fit_repulsion(embed, draws.pi, draws.pi_inv, rolls,
+                                        rep_coef, a, b)
 
 
 def _query_modality_loss(embed, task: LayoutTask, static: TaskStatic,
@@ -748,6 +730,8 @@ def train_layout(
     loss_fn = make_loss_fn(statics, mode=mode, num_rep=num_rep, alpha=alpha,
                            batch_size=batch_size)
     tasks = tuple(tasks)
+    if mode == "fit":
+        tasks = with_reverse_index(tasks, statics)
     runner = None
     if mesh is not None and mesh.size > 1:
         from .layout_sharded import sharded_chunk_runner, sharded_compatible

@@ -36,7 +36,7 @@ import typing
 import torch
 
 from ..ops import losses as L
-from ..ops.scatter_free import dynamic_slice, permutation_gather
+from ..ops.layout_terms import fit_attraction, fit_repulsion
 from ..parallel.collectives import (
     all_gather_rows,
     all_gather_tensor,
@@ -112,25 +112,18 @@ def _fit_modality_loss_local(embed_full, task: LayoutTask,
     inv_local = inv_row[row0:row0 + n_local]
     coef = keep_f * inv_local[:, None] + keep_b * inv_row[task.nbrs]
 
-    # The whole table itself at one rank: a slice would sum the anchor
-    # terms apart from the rest.
-    embed = embed_full if n_local == n else embed_full[row0:row0 + n_local]
-    y = embed_full[task.nbrs]  # local gather from the gathered table
-    loss_attr = (coef * L.umap_attr(embed[:, None, :], y, a, b)).sum()
+    # The single-device terms over this rank's anchor rows of the
+    # gathered table (layout_terms: kernels on the card); at one rank the
+    # range is the whole table, so the terms are the single-device ones.
+    loss_attr = fit_attraction(embed_full, task.nbrs, coef, a, b, row0=row0,
+                               rev=task.rev)
     if num_rep == 0:
         return loss_attr
-
     # Round r's negative for global row i is permuted[(i + rolls[r]) % n]
-    # (layout._fit_repulsion): the local rows of that roll.
+    # (layout._fit_rolls): the local rows of that roll.
     rep_coef = rowcnt[row0:row0 + n_local] * inv_local
-    permuted = permutation_gather(embed_full, draws.pi, draws.pi_inv)
-    start = torch.tensor(row0, dtype=torch.int64, device=embed_full.device)
-    rep_sum = torch.zeros(n_local, dtype=torch.float32,
-                          device=embed_full.device)
-    for r in range(num_rep):
-        neg = dynamic_slice(permuted, start + rolls[r], n_local)
-        rep_sum = rep_sum + L.umap_rep(embed, neg, a, b)
-    return loss_attr + (rep_coef * (rep_sum / num_rep)).sum()
+    return loss_attr + fit_repulsion(embed_full, draws.pi, draws.pi_inv,
+                                     rolls, rep_coef, a, b, row0=row0)
 
 
 def _query_rows_loss(embed_local, y_attr, neg_rows, task: LayoutTask,
@@ -281,7 +274,8 @@ def sharded_chunk_runner(statics: tuple, mode: str, num_rep: int,
     ranks (one all-reduce per chunk). ``ref_gather``: "full" gathers the
     frozen reference tables once per chunk (O(N * D) per rank); "ring"
     keeps them sharded and fetches rows by ring passes (O(N/P) per
-    rank)."""
+    rank). Fit tasks on the card carry their rank's reverse index
+    (``layout.with_reverse_index``, which ``train_layout`` applies)."""
     if ref_gather not in ("full", "ring"):
         raise ValueError(f"ref_gather must be full|ring, got {ref_gather!r}")
     loss_fn = _make_local_loss_fn(statics, mode=mode, num_rep=num_rep,

@@ -62,7 +62,9 @@ TILE_D_F32 = 16  # f32 D slice (one 64-byte TMA box row)
 COL_BLOCK = 32768
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = (_CSRC / "knn_tile.cu",)
+# One nvcc call builds every kernel of the port into one library: the kNN
+# tile kernel's and the layout terms' (ops/layout_terms.py binds those).
+_SOURCES = (_CSRC / "knn_tile.cu", _CSRC / "layout_terms.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 # Launches of the CUDA tile kernel in this process, one count per mode
@@ -129,8 +131,9 @@ def _nvcc_cmd(cuda_home: str, out: Path) -> list[str]:
 
 
 def build() -> ctypes.CDLL:
-    """Compiles ``csrc/knn_tile.cu`` (once per source content and nvcc
-    command) and returns the bound library."""
+    """Compiles ``csrc/knn_tile.cu`` and ``csrc/layout_terms.cu`` in one
+    ``nvcc`` call (once per source content and nvcc command) and returns
+    the library with the tile kernel's entry points bound."""
     global _lib, BUILD_SECONDS, BUILD_LOG, SO_PATH
     if _lib is not None:
         return _lib
@@ -142,7 +145,7 @@ def build() -> ctypes.CDLL:
     for src in _SOURCES:
         h.update(src.read_bytes())
     h.update(" ".join(_nvcc_cmd(CUDA_HOME, Path("x"))).encode())
-    so = _BUILD_DIR / f"knn_tile_{h.hexdigest()[:12]}.so"
+    so = _BUILD_DIR / f"kernels_{h.hexdigest()[:12]}.so"
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")

@@ -25,7 +25,8 @@ over the epochs after its first chunk. Prints JSON lines: the card, and
 per variant the ms per epoch, the device-busy share (summed kernel time
 over the profiled wall time), host launches per epoch
 (``cudaLaunchKernel`` / ``cuLaunchKernel`` / ``cudaGraphLaunch`` events),
-peak device memory and the kernels that take the most device time.
+peak device memory, the kernels that take the most device time and the
+device time of the fit terms' four kernels (``csrc/layout_terms.cu``).
 Writes each variant's Chrome trace to ``--out``. Needs a GPU; imports
 nothing of JAX.
 """
@@ -40,6 +41,9 @@ import subprocess
 import time
 
 import torch
+
+TERM_KERNELS = ("fit_attr_fwd_kernel", "fit_attr_bwd_kernel",
+                "fit_rep_fwd_kernel", "fit_rep_bwd_kernel")
 
 
 def main() -> None:
@@ -161,6 +165,11 @@ def main() -> None:
                 v for k, v in host.items() if k in LG.LAUNCH_EVENTS),
             "host_events_per_epoch": host,
             "kernels_per_epoch": sum(e.count for e in events) / epochs,
+            # the fit terms' kernels (csrc/layout_terms.cu) by name
+            "layout_terms_ms_per_epoch": {
+                name: sum(e.self_device_time_total for e in events
+                          if name in e.key) / 1e3 / epochs
+                for name in TERM_KERNELS},
             "top_kernels": [{"name": e.key[:80], "count": e.count,
                              "device_ms_per_epoch":
                                  e.self_device_time_total / 1e3 / epochs}

@@ -21,10 +21,15 @@ reverse-edge lookup, the spectral init and each Laplacian apply inside it
 size and each gated stage must stay below the gate :func:`reckoned_gates`
 derives from the code's own buffers; observed, not assumed: the kNN's
 column chunks from the tile kernel's launch signatures, the reverse-lookup
-and edge blocks and the recomputed attraction slots and modality losses
-from counted calls (the layout's are Python calls: on CUDA the epoch runs
-them only in its warm-up and capture, and the graph replays them). Prints the card (``nvidia-smi`` name and power limit)
-and one JSON line; exits non-zero on a failed check.
+and edge blocks and the recomputed modality losses from counted calls
+(the layout's are Python calls: on CUDA the epoch runs them only in its
+warm-up and capture, and the graph replays them). The fit attraction's
+bound is the plain form's recomputed slot scan on the CPU; on CUDA the
+fused attraction kernel, which never makes the gather the scan bounds,
+must have launched and the layout stage's peak above live must stay
+within the slot scan's 2.750 GiB and below its gate
+(:func:`attraction_bound`). Prints the card (``nvidia-smi`` name and power
+limit) and one JSON line; exits non-zero on a failed check.
 
 ``--whole`` sets the port's bound constants past any size, so that every
 bounded form runs whole, for an A/B of time and memory at a rung: its
@@ -189,6 +194,40 @@ def _device_mean(table: torch.Tensor, rows: int = 65_536) -> torch.Tensor:
     return total / table.shape[0]
 
 
+# The layout stage's peak above live at 524,288 pairs with the attraction's
+# slot scan (measured on an H100 80GB HBM3, PERF.md §5): the fused
+# attraction kernel must not hold more.
+LAYOUT_PEAK_SLOT_SCAN_GIB = 2.750
+
+
+def attraction_bound(dev, calls: dict, kernel_launches: int,
+                     layout_peak: int | None, gate: float,
+                     csr_bytes: int = 0) -> dict:
+    """How the fit attraction's memory was bounded. On the CPU the plain
+    form's slot scan past ``layout._ATTR_SLOT_BYTES`` (counted recomputed
+    slot calls). On CUDA the fused kernel (``ops/layout_terms.py``) never
+    makes the (N, k, D) gather that the scan bounds, so the bound holds
+    when the kernel ran (its launches at this rung) and the layout stage's
+    peak above live stays within the slot scan's measured peak and below
+    the stage's gate. That peak counts the kernel's transposed indices
+    (``csr_bytes``, reported beside it): ``train_layout`` builds them
+    inside the stage, and they exist only for this kernel."""
+    if torch.device(dev).type != "cuda":
+        return {"attraction_slot_scan": {
+            "slot_calls_traced": calls.get("_attr_slot", 0),
+            "engaged": calls.get("_attr_slot", 0) > 0}}
+    peak_gib = None if layout_peak is None else layout_peak * GIB
+    return {"attraction_kernel": {
+        "fit_attr_launches": kernel_launches,
+        "layout_peak_gib": peak_gib,
+        "slot_scan_peak_gib": LAYOUT_PEAK_SLOT_SCAN_GIB,
+        "gate_gib": gate * GIB,
+        "reverse_index_gib_in_peak": csr_bytes * GIB,
+        "engaged": bool(kernel_launches > 0 and peak_gib is not None
+                        and peak_gib <= LAYOUT_PEAK_SLOT_SCAN_GIB
+                        and peak_gib < gate * GIB)}}
+
+
 def run_rung(n: int, device=None) -> tuple[dict, dict]:
     """One rung (see the module docstring). Returns (its JSON line, the
     tile kernel's launch census: per signature (Q, N, D, dtype, tile_k,
@@ -203,6 +242,7 @@ def run_rung(n: int, device=None) -> tuple[dict, dict]:
     from multimodal_umap_tpu_torch.models import layout as PL
     from multimodal_umap_tpu_torch.ops import graph as PG
     from multimodal_umap_tpu_torch.ops import knn_tile as KT
+    from multimodal_umap_tpu_torch.ops import layout_terms as LT
     from multimodal_umap_tpu_torch.ops import spectral as PS
 
     dev = torch.device("cuda" if device is None else device)
@@ -283,9 +323,11 @@ def run_rung(n: int, device=None) -> tuple[dict, dict]:
         (PS, "_add_edges", counted("_add_edges")),
         (PS, "_adjacency_apply", counted("_adjacency_apply")),
         (PL, "_recompute", counted("_recompute")),
+        (LT, "_recompute", counted("_recompute")),
     ]
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    attr_before = LT.FIT_ATTR_LAUNCHES
     t0 = time.perf_counter()
     with patched([(KT, "knn_tile", observe)]):
         with patched(fit_patches):
@@ -295,6 +337,7 @@ def run_rung(n: int, device=None) -> tuple[dict, dict]:
         sync()
         seconds["fit"] = time.perf_counter() - t0
         fit_peak = torch.cuda.max_memory_allocated() - base
+        fit_attr_launches = LT.FIT_ATTR_LAUNCHES - attr_before
         path[0] = "eval"
         t0 = time.perf_counter()
         cosine = similarity_test(test, cfg, model, return_values=True,
@@ -344,9 +387,10 @@ def run_rung(n: int, device=None) -> tuple[dict, dict]:
                 "applies": applies,
                 "engaged": applies > 0 and calls.get("_add_edges", 0)
                 == applies * -(-edges // PS._EDGE_BLOCK) > applies},
-            "attraction_slot_scan": {
-                "slot_calls_traced": calls.get("_attr_slot", 0),
-                "engaged": calls.get("_attr_slot", 0) > 0},
+            **attraction_bound(dev, calls, fit_attr_launches,
+                               mem.peak.get("fit/layout"),
+                               gates["fit/layout"],
+                               len(DIMS) * 4 * (n * k + n + 1)),
             "modality_recompute": {
                 "calls_traced": calls.get("_fit_modality_loss", 0),
                 "engaged": calls.get("_fit_modality_loss", 0) > 0},

@@ -207,6 +207,7 @@ def sharded_vs_single_rank(mesh, tasks_np, statics, inits_np, kw):
         epoch_rng,
         make_optimizer,
         train_layout,
+        with_reverse_index,
     )
     from multimodal_umap_tpu_torch.models.layout_sharded import (
         sharded_chunk_runner,
@@ -218,13 +219,86 @@ def sharded_vs_single_rank(mesh, tasks_np, statics, inits_np, kw):
     runner = sharded_chunk_runner(tuple(statics), "fit", kw["num_rep"],
                                   kw["alpha"], kw["batch_size"], mesh)
     params = [e.detach().clone().requires_grad_(True) for e in inits]
-    hist = runner(params, make_optimizer(params, kw["lr"]), tasks, kw["a"],
-                  kw["b"], lambda e: draw_epoch(
+    hist = runner(params, make_optimizer(params, kw["lr"]),
+                  with_reverse_index(tasks, statics), kw["a"], kw["b"],
+                  lambda e: draw_epoch(
                       epoch_rng(kw["seed"], e, params[0].device), tasks,
                       statics, mode="fit", num_rep=kw["num_rep"],
                       alpha=kw["alpha"]), 0, kw["epochs"])
     return {"single": [_np(e) for e in single], "single_hist": _np(s_hist),
             "sharded": [_np(p) for p in params], "sharded_hist": _np(hist)}
+
+
+def term_calls_rank(mesh, task_np, n, k, d, num_rep, seed):
+    """The sharded fit loss of this rank's rows beside the single-device
+    one on the same draws, with every call of the attraction and
+    repulsion functions (``ops.layout_terms``) recorded: per engine the
+    loss, the gradient of the whole table and each call's row range,
+    coefficients and term value."""
+    from multimodal_umap_tpu_torch.models import layout as PL
+    from multimodal_umap_tpu_torch.models import layout_sharded as LS
+    from multimodal_umap_tpu_torch.ops import layout_terms as LT
+    from multimodal_umap_tpu_torch.parallel import ShardingPlan, shard_task
+    from multimodal_umap_tpu_torch.parallel.collectives import (
+        all_gather_rows,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    embed = torch.randn(n, d, generator=gen)
+    task, static = PL.fit_task(_dense(task_np, n), 32)
+    draws = PL.draw_epoch(PL.epoch_rng(seed, 0, torch.device("cpu")), [task],
+                          [static], mode="fit", num_rep=num_rep,
+                          alpha=0.0).modality[0]
+    rolls = torch.tensor(PL._fit_rolls(draws, static, num_rep))
+    calls = []
+
+    def recorded(name, fn):
+        def run(*args, **kwargs):
+            value = fn(*args, **kwargs)
+            calls.append({"term": name, "row0": kwargs.get("row0", 0),
+                          "coef": _np(args[2] if name == "attr" else args[4]),
+                          "table_rows": args[0].shape[0],
+                          "value": _np(value)})
+            return value
+        return run
+
+    saved = (LT.fit_attraction, LT.fit_repulsion, LS.fit_attraction,
+             LS.fit_repulsion)
+    LT.fit_attraction = LS.fit_attraction = recorded("attr", saved[0])
+    LT.fit_repulsion = LS.fit_repulsion = recorded("rep", saved[1])
+    kw = dict(a=1.577, b=0.8951, num_rep=num_rep, batch_size=32)
+    try:
+        e = embed.clone().requires_grad_(True)
+        loss = PL._fit_modality_loss(e, task, static, draws, rolls=rolls,
+                                     deterministic=False, **kw)
+        loss.backward()
+        single = {"loss": _np(loss), "grad": _np(e.grad), "calls": calls[:]}
+        calls.clear()
+        plan = ShardingPlan(mesh)
+        l_task, local = shard_task(plan, task, embed)
+        local = local.clone().requires_grad_(True)
+        full = all_gather_rows(local, mesh)
+        loss = LS._fit_modality_loss_local(
+            full, l_task, static, LS._local_draws(
+                PL.EpochDraws([draws], []), mesh.rank * local.shape[0],
+                local.shape[0], "fit").modality[0], rolls,
+            row0=mesh.rank * local.shape[0], mesh=mesh, **kw)
+        loss.backward()
+        sharded = {"loss": _np(loss), "grad": _np(local.grad),
+                   "calls": calls[:]}
+    finally:
+        (LT.fit_attraction, LT.fit_repulsion, LS.fit_attraction,
+         LS.fit_repulsion) = saved
+    return {"single": single, "sharded": sharded}
+
+
+def _dense(task_np, n):
+    from multimodal_umap_tpu_torch.ops.graph import DenseSymGraph
+
+    return DenseSymGraph(nbrs=torch.as_tensor(task_np["nbrs"]),
+                         weights=torch.as_tensor(task_np["weights"]),
+                         bwd_valid=torch.as_tensor(task_np["bwd_valid"]),
+                         num_rows=n)
 
 
 def collectives_rank(mesh, n, k, d, q):
@@ -238,6 +312,7 @@ def collectives_rank(mesh, n, k, d, q):
         epoch_rng,
         fit_task,
         query_task,
+        with_reverse_index,
     )
     from multimodal_umap_tpu_torch.models.layout_sharded import (
         sharded_chunk_runner,
@@ -270,6 +345,8 @@ def collectives_rank(mesh, n, k, d, q):
                               statics, mode=mode, num_rep=num_rep,
                               alpha=1.0 if mode == "fit" else 0.0)
 
+        if mode == "fit":
+            tasks = with_reverse_index(tasks, statics)
         with recording() as ops:
             runner(params, opt, tasks, a, b, draws, 0, epochs)
         return collective_summary(ops)

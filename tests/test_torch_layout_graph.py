@@ -30,6 +30,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from layout_graph_torch import eager_runner  # noqa: E402
 
 from multimodal_umap_tpu_torch.models import layout as PL  # noqa: E402
+from multimodal_umap_tpu_torch.ops import layout_terms as LT  # noqa: E402
 from multimodal_umap_tpu_torch.ops import losses as PLo  # noqa: E402
 from multimodal_umap_tpu_torch.ops.graph import DenseSymGraph  # noqa: E402
 from multimodal_umap_tpu_torch.ops.scatter_free import (  # noqa: E402
@@ -168,12 +169,12 @@ def _int_rolls():
     def roll(x, off):
         return torch.roll(x, -int(off), 0)
 
-    saved = PL.dynamic_roll, PLo.dynamic_roll
-    PL.dynamic_roll = PLo.dynamic_roll = roll
+    saved = LT.dynamic_roll, PLo.dynamic_roll
+    LT.dynamic_roll = PLo.dynamic_roll = roll
     try:
         yield
     finally:
-        PL.dynamic_roll, PLo.dynamic_roll = saved
+        LT.dynamic_roll, PLo.dynamic_roll = saved
 
 
 @pytest.mark.parametrize("mode", ["fit", "transform", "invert"])

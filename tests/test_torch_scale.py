@@ -45,6 +45,7 @@ from multimodal_umap_tpu_torch.models import encoder as PE
 from multimodal_umap_tpu_torch.models import layout as PL
 from multimodal_umap_tpu_torch.ops import graph as PG
 from multimodal_umap_tpu_torch.ops import knn_tile as KT
+from multimodal_umap_tpu_torch.ops import layout_terms as LT
 from multimodal_umap_tpu_torch.ops import spectral as PS
 
 JK = sys.modules["multimodal_umap_tpu.ops.knn"]
@@ -358,7 +359,8 @@ def test_slot_scan_engages_by_size_and_recomputes(monkeypatch):
         calls.append(fn.__name__)
         return recompute(fn, *args, **kwargs)
 
-    monkeypatch.setattr(PL, "_recompute", counted)
+    monkeypatch.setattr(PL, "_recompute", counted)  # the modality's
+    monkeypatch.setattr(LT, "_recompute", counted)  # the slots'
     draws = jax_epoch_draws(jax.random.PRNGKey(15), [(64, 5)], mode="fit",
                             num_rep=2, alpha=0.0)
     for bounds, want in (({}, []),
