@@ -157,12 +157,19 @@ line:
    64, k = 15, 8 rounds), at a rank's row range of it (row0 = 15,872, the
    second half), at the scale rung's 524,288 x 64 (random graph and
    draws of the same shape) and at 31,744 x 200 (an --out_dim past the
-   128 columns the kernels hold in registers; random graph and draws):
+   128 columns the kernels hold in registers; random graph and draws),
+   and the attraction at 31,744 x 64 on a random graph (no hubs; its
+   ``work`` gives the in-degrees and the backward's chunk plan beside
+   the main graph's):
    the loss within rtol 1e-5, the gradient of
    the whole table within rtol 1e-5 plus 1e-5 of its largest entry, two
-   kernel runs bit-equal; each kernel's ms, the plain forward's and
-   backward's ms and the bound from the bytes and operations of these
-   inputs (library: none, no one PyTorch call computes a term);
+   kernel runs bit-equal; each kernel's ms and the plain forward's and
+   backward's (device time: calls captured in a CUDA graph and replayed;
+   the plain repulsion of a row range cannot be captured and is timed
+   eagerly, ``plain_timing``), each kernel's own device time from
+   ``torch.profiler`` (``kernel_ms``: a backward's passes one by one) and
+   the bound from the bytes and operations of these inputs (library:
+   none, no one PyTorch call computes a term);
 14. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
    (norm pre-pass, tile kernel, candidate permute + merge ``topk``,
    exact f32 re-score), and the tile kernel at the other main-path
@@ -190,7 +197,8 @@ line:
     ``fit_rep_bwd``) at the main path's shape with the row range and the
     scale rung beside, their launches on the fit/eval, CLI, scale and
     both mesh paths (host launches: a captured epoch's replays run the
-    captured kernels again);
+    captured kernels again; a backward's count is its calls, and its
+    ``passes`` give each of its kernels' own launches and device ms);
 16. last line -- ``{"ok": true, "device": {...}}``.
 """
 
@@ -296,6 +304,17 @@ TERM_KERNELS = {"fit_attr": "FIT_ATTR_LAUNCHES",
                 "fit_attr_bwd": "FIT_ATTR_BWD_LAUNCHES",
                 "fit_rep": "FIT_REP_LAUNCHES",
                 "fit_rep_bwd": "FIT_REP_BWD_LAUNCHES"}
+# Each backward's kernels (its counter counts calls of its gather), counted
+# one by one in ops/layout_terms.py's BWD_PASS_LAUNCHES: the edge pass,
+# the gather and (the attraction, where a row has more than CHUNK_EDGES
+# in-edges) the finishing pass.
+TERM_PASSES = {"fit_attr_bwd": ("fit_attr_bwd_weights_kernel",
+                                "fit_attr_bwd_kernel",
+                                "fit_attr_bwd_finish_kernel"),
+               "fit_rep_bwd": ("fit_rep_bwd_weights_kernel",
+                               "fit_rep_bwd_kernel")}
+# Every count term_launches() gives
+TERM_COUNTS = (*TERM_KERNELS, *(k for ks in TERM_PASSES.values() for k in ks))
 
 
 def reset_counts(KT) -> None:
@@ -307,15 +326,20 @@ def reset_counts(KT) -> None:
     KT.ROW_NORM_LAUNCHES = 0
     for counter in TERM_KERNELS.values():
         setattr(LT, counter, 0)
+    for kernel in LT.BWD_PASS_LAUNCHES:
+        LT.BWD_PASS_LAUNCHES[kernel] = 0
 
 
 def term_launches() -> dict:
-    """Launches of the layout-term kernels since the last reset (host
+    """Launches of the layout-term kernels since the last reset, by the
+    kernels line's name and each backward kernel by its own (host
     launches: a captured epoch launches them in its warm-up and capture,
     and each replay runs the captured ones again)."""
     from multimodal_umap_tpu_torch.ops import layout_terms as LT
 
-    return {name: getattr(LT, c) for name, c in TERM_KERNELS.items()}
+    return {**{name: getattr(LT, c) for name, c in TERM_KERNELS.items()},
+            **{k: LT.BWD_PASS_LAUNCHES[k] for k in TERM_COUNTS
+               if k not in TERM_KERNELS}}
 
 
 def tile_launches(KT) -> int:
@@ -371,6 +395,55 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int, stream) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph on ``stream``, one replay timed between events, so that the
+    host's launch cost stays out of the time."""
+    with torch.cuda.stream(stream):
+        fn()  # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def term_kernel_ms(events, per: int) -> dict:
+    """Device ms of each layout-term kernel (``csrc/layout_terms.cu``, by
+    its name without template arguments) among ``torch.profiler``'s
+    kernel events (``key_averages()`` entries on the device), per ``per``
+    calls."""
+    out = {}
+    for e in events:
+        m = re.search(r"fit_\w+_kernel", e.key)
+        if m:
+            out[m.group(0)] = (out.get(m.group(0), 0.0)
+                               + e.self_device_time_total / 1e3 / per)
+    return out
+
+
+def profiled_term_ms(fn, reps: int) -> dict:
+    """:func:`term_kernel_ms` of ``reps`` eager calls of ``fn``."""
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return term_kernel_ms([e for e in prof.key_averages() if e.device_type
+                           == torch.autograd.DeviceType.CUDA], reps)
 
 
 def bound_ms(nq, n, d, tile_k, bf16=True):
@@ -516,6 +589,8 @@ def term_work(term: str, inp: dict, row0: int) -> dict:
     needs: slots and anchors whose coefficient is 0 read nothing): per
     anchor-neighbour pair 3 D operations for the distance, 2 D more for
     the gradient, and 40 for the curve."""
+    from multimodal_umap_tpu_torch.ops import layout_terms as LT
+
     e = inp["embed"]
     n, d = e.shape
     if term == "attr":
@@ -525,15 +600,26 @@ def term_work(term: str, inp: dict, row0: int) -> dict:
         pairs = int(live.sum())
         anchors = torch.arange(row0, row0 + n_rows, device=e.device)
         rows = int(torch.unique(torch.cat([anchors, nbrs[live]])).numel())
+        # the backward reads the CSR (int32, built once per fit); its
+        # chunk plan and scratch are the kernels' own work, not counted
+        rev = LT.reverse_index(nbrs, n)
         fwd = (rows * d * 4 + pairs * 8 + n_rows * k * 4 + n_rows * 4,
                pairs * (3 * d + 40))
         bwd = (n * d * 4 + pairs * 8 + n_rows * k * 4 + (n + 1) * 4
-               + n_rows * k * 4 + 4 + n * d * 4,
-               2 * pairs * (5 * d + 40))
-        # kept in-edges a row: the backward gives a row's to one warp
+               + n_rows * k * 4 + 4 + n * d * 4, 2 * pairs * (5 * d + 40))
+        # kept in-edges a row (a hub's set its warp's time before the
+        # chunk plan), and the plan's work items (a tree from before the
+        # plan, as compare_layout_terms.py may run, has none)
         in_deg = torch.bincount(nbrs[live], minlength=n)
         skew = {"max_in_degree": int(in_deg.max()),
-                "mean_in_degree": pairs / n}
+                "mean_in_degree": pairs / n,
+                "max_csr_in_degree": int((rev.offsets[1:]
+                                          - rev.offsets[:-1]).max())}
+        if hasattr(rev, "chunk_multi"):
+            skew.update(chunk_edges=LT.CHUNK_EDGES,
+                        multi_chunk_rows=int(rev.multi_row.numel()),
+                        chunks=int(rev.chunk_multi.numel()),
+                        work_items=n + int(rev.chunk_multi.numel()))
     else:
         pi, rolls, rep_coef = inp["pi"], inp["rolls"], inp["rep_coef"]
         n_rows, r = rep_coef.shape[0], rolls.shape[0]
@@ -563,7 +649,13 @@ def check_term(term: str, inp: dict, row0: int = 0, reps: int = 20) -> dict:
     pair is far, as at D = 200): the loss and the gradient of the whole
     table (gradient output 1), two kernel runs bit-equal, and the times
     of each kernel and of the plain version's forward and backward (in
-    float32, as the port runs it)."""
+    float32, as the port runs it): device time of a replayed CUDA graph
+    (``graph_ms``; an eager loop of these sub-0.1 ms calls would time the
+    host's launches), but for the plain repulsion of a row range, which
+    copies its row0 from the host and cannot be captured (eager,
+    ``cuda_ms``, marked in ``plain_timing``); and each kernel's own
+    device time from ``torch.profiler`` (``kernel_ms``: the backward's
+    passes one by one)."""
     from multimodal_umap_tpu_torch.ops import layout_terms as LT
 
     e, a, b = inp["embed"], inp["a"], inp["b"]
@@ -627,16 +719,31 @@ def check_term(term: str, inp: dict, row0: int = 0, reps: int = 20) -> dict:
         with torch.no_grad():
             fn(e)
 
+    # the backward runs on its forward's stream: the side stream, where
+    # graph_ms captures it
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+
     def bwd_of(fn):
-        x = e.detach().clone().requires_grad_(True)
-        loss = fn(x)
+        with torch.cuda.stream(side):
+            x = e.detach().clone().requires_grad_(True)
+            loss = fn(x)
         return lambda: torch.autograd.grad(loss, x, retain_graph=True)
 
-    line["ms"] = {"fwd": cuda_ms(lambda: fwd(kernel), reps),
-                  "bwd": cuda_ms(bwd_of(kernel), reps)}
+    line["ms"] = {"fwd": graph_ms(lambda: fwd(kernel), reps, side),
+                  "bwd": graph_ms(bwd_of(kernel), reps, side)}
+    line["kernel_ms"] = {"fwd": profiled_term_ms(lambda: fwd(kernel), reps),
+                         "bwd": profiled_term_ms(bwd_of(kernel), reps)}
     plain_reps = max(2, reps // 4)
-    line["plain_ms"] = {"fwd": cuda_ms(lambda: fwd(plain), plain_reps),
-                        "bwd": cuda_ms(bwd_of(plain), plain_reps)}
+    if term == "rep" and row0 != 0:
+        line["plain_timing"] = "eager"
+        line["plain_ms"] = {"fwd": cuda_ms(lambda: fwd(plain), plain_reps),
+                            "bwd": cuda_ms(bwd_of(plain), plain_reps)}
+    else:
+        line["plain_timing"] = "graph"
+        line["plain_ms"] = {
+            "fwd": graph_ms(lambda: fwd(plain), plain_reps, side),
+            "bwd": graph_ms(bwd_of(plain), plain_reps, side)}
     line["work"] = term_work(term, inp, row0)
     return line
 
@@ -647,7 +754,9 @@ def layout_terms(main_inputs: dict, dev) -> dict:
     rank's row range of it (the second half: row0 = N / 2, as rank 1 of
     two reads the gathered table), at the scale rung's 524,288 x 64 and
     at the main path's rows with an --out_dim past 128 (D = 200: the
-    kernels' instance that holds no row in registers)."""
+    kernels' instance that holds no row in registers); and the attraction
+    on a random graph of the main path's shape (no hubs), beside its
+    hub-heavy main graph."""
     out = {"phase": "layout_terms", "library": "none (no one call)",
            "tolerance": {"loss_rtol": TERM_LOSS_RTOL,
                          "grad_rtol": TERM_GRAD_RTOL,
@@ -668,6 +777,9 @@ def layout_terms(main_inputs: dict, dev) -> dict:
             "row_range": check_term(term, ranged[term], row0=half),
             "scale": check_term(term, scale[term], reps=10)}
     del scale
+    # the main path's shape without its hubs: uniform random ids
+    out["attr"]["random_graph"] = check_term(
+        "attr", synthetic_terms(n, dev, seed=2)["attr"])
     wide = synthetic_terms(n, dev, seed=1, d=WIDE_D)
     for term in ("attr", "rep"):
         out[term]["wide"] = check_term(term, wide[term], reps=5)
@@ -698,11 +810,17 @@ def term_entries(tline: dict, by_path: dict) -> list[dict]:
             return {"max_abs_err": (v["grad_max_abs_err"] if way == "bwd"
                                     else v["loss_abs_err"]),
                     "ms": v["ms"][way], "plain_ms": v["plain_ms"][way],
+                    "plain_timing": v["plain_timing"],
                     "bound_ms": v["work"][way]["bound_ms"],
                     "bound_by": v["work"][way]["bound_by"]}
 
         paths = {p: c[name] for p, c in by_path.items()}
         main = tline[term]["main"]
+        # a backward is one call of its passes' kernels: each one's own
+        # launches (all paths) and device ms at the main path's shape
+        passes = {k: {"launches": sum(c[k] for c in by_path.values()),
+                      "ms": main["kernel_ms"][way].get(k, 0.0)}
+                  for k in TERM_PASSES.get(name, ())}
         out.append({
             "name": name, "route": "cuda",
             "source": "multimodal_umap_tpu_torch/csrc/layout_terms.cu",
@@ -711,6 +829,7 @@ def term_entries(tline: dict, by_path: dict) -> list[dict]:
                                   else "_fit_repulsion")
             + " (XLA-fused in the jitted epoch; no pallas_call)",
             "launches": sum(paths.values()), "launches_by_path": paths,
+            **({"passes": passes} if passes else {}),
             **numbers(main), "library_ms": None,
             "shape": {"rows": main["rows"], "anchor_rows": main["anchor_rows"]},
             "at_row_range": {"row0": tline[term]["row_range"]["row0"],
@@ -1455,7 +1574,8 @@ def main() -> None:
           f"{BLOCK_ROWS} rows at D = {DIMS}")
     mesh_terms = {part: mesh_launches[f"{part}_layout_terms"]
                   for part in ("nccl_world1", "gloo_two_ranks")}
-    check(all(v > 0 for part in mesh_terms.values() for v in part.values()),
+    check(all(part[k] > 0 for part in mesh_terms.values()
+              for k in TERM_KERNELS),
           f"mesh path left a layout-term kernel unlaunched: {mesh_terms}")
 
     # 13. the fit layout's term kernels against their plain versions at

@@ -599,9 +599,9 @@ def run(train_np, test_np, dev, out_dir, main_cosine: float | None):
     launches = {"nccl_world1": a_line.get("ring_tile_launches", 0),
                 "gloo_two_ranks": b_launches,
                 "nccl_world1_layout_terms": a_line.get(
-                    "layout_term_launches", dict.fromkeys(CS.TERM_KERNELS, 0)),
+                    "layout_term_launches", dict.fromkeys(CS.TERM_COUNTS, 0)),
                 "gloo_two_ranks_layout_terms": {
-                    k: b_launches.get(k, 0) for k in CS.TERM_KERNELS}}
+                    k: b_launches.get(k, 0) for k in CS.TERM_COUNTS}}
     return line, fails, launches
 
 

@@ -77,7 +77,8 @@ class LayoutTask(typing.NamedTuple):
     sigmas: torch.Tensor | None = None
     rhos: torch.Tensor | None = None
     # fit on the card: ``layout_terms.reverse_index`` of ``nbrs`` over the
-    # table's rows (built only by :func:`with_reverse_index`)
+    # table's rows and its chunk plan (built only by
+    # :func:`with_reverse_index`)
     rev: typing.Any = None
 
 
@@ -298,11 +299,12 @@ _MODALITY_REMAT_ROWS = 1 << 18
 
 def with_reverse_index(tasks, statics):
     """Fit tasks on the card with the transposed index of their neighbour
-    ids (``layout_terms.reverse_index`` over the table's rows), which the
-    attraction kernel's backward reads. The one place it is built:
-    :func:`train_layout` calls this, and so does a direct caller of the
-    sharded engine's runner, once for all epochs and before any capture,
-    since the graph is fixed. A task that has it keeps it."""
+    ids and its chunk plan (``layout_terms.reverse_index`` over the
+    table's rows), which the attraction kernel's backward reads. The one
+    place they are built: :func:`train_layout` calls this, and so does a
+    direct caller of the sharded engine's runner, once for all epochs and
+    before any capture (the plan's sizes take a host sync), since the
+    graph is fixed. A task that has them keeps them."""
     return tuple(
         t._replace(rev=LT.reverse_index(t.nbrs, s.num_rows))
         if t.rev is None and t.nbrs.is_cuda

@@ -26,7 +26,8 @@ per variant the ms per epoch, the device-busy share (summed kernel time
 over the profiled wall time), host launches per epoch
 (``cudaLaunchKernel`` / ``cuLaunchKernel`` / ``cudaGraphLaunch`` events),
 peak device memory, the kernels that take the most device time and the
-device time of the fit terms' four kernels (``csrc/layout_terms.cu``).
+device time of the fit terms' kernels (``csrc/layout_terms.cu``), by term
+and pass and by kernel.
 Writes each variant's Chrome trace to ``--out``. Needs a GPU; imports
 nothing of JAX.
 """
@@ -42,8 +43,9 @@ import time
 
 import torch
 
-TERM_KERNELS = ("fit_attr_fwd_kernel", "fit_attr_bwd_kernel",
-                "fit_rep_fwd_kernel", "fit_rep_bwd_kernel")
+# The fit terms' passes (csrc/layout_terms.cu) by name prefix: a
+# backward's prefix covers its edge, gather and finishing kernels.
+TERM_KERNELS = ("fit_attr_fwd", "fit_attr_bwd", "fit_rep_fwd", "fit_rep_bwd")
 
 
 def main() -> None:
@@ -97,6 +99,7 @@ def main() -> None:
                                   rhos=enc.rhos)
         tasks, statics, inits = [task], [static], [init]
 
+    import chip_smoke as CS
     import layout_graph_torch as LG
 
     chunk = 5
@@ -145,6 +148,7 @@ def main() -> None:
         events = [e for e in averages
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         device_us = sum(e.self_device_time_total for e in events)
+        terms = CS.term_kernel_ms(events, epochs)
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
         host = {e.key: e.count / epochs for e in averages
                 if e.key in LG.LAUNCH_EVENTS + ("cudaMemcpyAsync",)}
@@ -165,11 +169,12 @@ def main() -> None:
                 v for k, v in host.items() if k in LG.LAUNCH_EVENTS),
             "host_events_per_epoch": host,
             "kernels_per_epoch": sum(e.count for e in events) / epochs,
-            # the fit terms' kernels (csrc/layout_terms.cu) by name
+            # the fit terms' kernels (csrc/layout_terms.cu): by term and
+            # pass, and by kernel
             "layout_terms_ms_per_epoch": {
-                name: sum(e.self_device_time_total for e in events
-                          if name in e.key) / 1e3 / epochs
+                name: sum(v for k, v in terms.items() if k.startswith(name))
                 for name in TERM_KERNELS},
+            "layout_term_kernels_ms_per_epoch": terms,
             "top_kernels": [{"name": e.key[:80], "count": e.count,
                              "device_ms_per_epoch":
                                  e.self_device_time_total / 1e3 / epochs}

@@ -1,9 +1,12 @@
 """PyTorch port: the fit layout's attraction and repulsion terms
 (``ops/layout_terms.py``) and their CUDA kernels (``csrc/layout_terms.cu``).
 
-On the CPU: the transposed index (CSR) of the neighbour ids; the kernels'
-gather-form backward, written in PyTorch with the kernels' index
-arithmetic, against autograd of the plain terms; the plain and gather
+On the CPU: the transposed index (CSR) of the neighbour ids and the
+attraction backward's chunk plan over it (hubs at C, C + 1 and several C
+in-edges, rows without in-edges, row ranges with hubs outside them, the
+sharded engine's rows); the kernels' backward (weights once, then the
+gather over the plan's work items), written in PyTorch with the kernels'
+index arithmetic, against autograd of the plain terms; the plain and gather
 forms against the JAX package's ``_fit_modality_loss(part="attr" /
 "rep")`` on JAX's replayed draws; a CPU tensor taking the plain version;
 the sharded engine calling the same two functions as the single-device
@@ -61,13 +64,24 @@ def _attr_problem(n, n_rows, row0, k, d, seed, dtype=torch.float64,
                   hub=False, dups=False, device="cpu"):
     """(embed, nbrs, coef) with ids over [0, n - 3) (the last 3 rows get
     no in-edge), a quarter of the coefficients 0; ``hub``: row 7 is every
-    other anchor's slot-1 neighbour; ``dups``: anchor row0 + 1 is a copy of
-    its slot-0 neighbour (clamp region)."""
+    other anchor's slot-1 neighbour, or a dict {row: in-degree} of rows
+    that take exactly that many slots, picked at random (the other slots
+    avoid them); ``dups``: anchor row0 + 1 is a copy of its slot-0
+    neighbour (clamp region)."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n, d))
-    nbrs = rng.integers(0, n - 3, size=(n_rows, k))
-    if hub:
-        nbrs[::2, 1] = 7
+    if isinstance(hub, dict):
+        others = np.setdiff1d(np.arange(n - 3), list(hub))
+        flat = others[rng.integers(0, others.size, size=n_rows * k)]
+        slots = rng.permutation(n_rows * k)
+        for row, deg in hub.items():
+            flat[slots[:deg]] = row
+            slots = slots[deg:]
+        nbrs = flat.reshape(n_rows, k)
+    else:
+        nbrs = rng.integers(0, n - 3, size=(n_rows, k))
+        if hub:
+            nbrs[::2, 1] = 7
     if dups:
         x[row0 + 1] = x[nbrs[1, 0]]
     coef = rng.random((n_rows, k))
@@ -110,18 +124,37 @@ def _autograd(term, embed, *args, g=0.37, **kw):
 
 TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-5)}
 
+C = LT.CHUNK_EDGES  # the most in-edges a work item of the backward takes
+
 ATTR_CASES = {  # n, n_rows, row0, k, d, hub, dups
     "whole": (61, 61, 0, 6, 5, False, True),
     "row_range": (70, 29, 23, 5, 4, False, True),
     "hub": (203, 203, 0, 15, 33, True, True),
     "wide": (40, 40, 0, 4, 200, True, True),
+    # hubs of exactly C, C + 1 and several C in-edges: one chunk, two,
+    # several; in a row range, hubs outside it and inside it
+    "chunk_bounds": (160, 160, 0, 6, 5,
+                     {3: C, 50: C + 1, 77: 3 * C, 90: 2 * C + 5}, True),
+    "range_hubs_outside": (150, 60, 70, 6, 4, {5: 2 * C + 1, 140: C + 1},
+                           True),
+    "range_hub_inside": (150, 60, 40, 6, 4, {45: 3 * C + 2, 120: C}, True),
+    "wide_chunk_bounds": (90, 90, 0, 4, 200, {10: C + 1, 11: 2 * C}, True),
 }
+HUB_CASES = [c for c, v in ATTR_CASES.items() if isinstance(v[5], dict)]
+def _rolls(n, r):
+    """r round offsets over [0, n): 0, n - 1, then spread."""
+    return [0, n - 1] + [(37 * j * j + 5 * j) % n for j in range(2, r)]
+
+
 REP_CASES = {  # n, n_rows, row0, d, rolls
     "r1_roll0": (53, 53, 0, 5, [0]),
     "r1_roll_n-1": (53, 53, 0, 5, [52]),
     "r8_whole": (77, 77, 0, 6, [0, 76, 3, 40, 11, 9, 60, 25]),
     "r8_row_range": (77, 30, 41, 6, [0, 76, 3, 40, 11, 9, 60, 25]),
     "wide_row_range": (45, 20, 11, 200, [0, 44, 7]),
+    # more rounds than the kernels' batch of 8: a second and third batch
+    "r9_whole": (77, 77, 0, 6, _rolls(77, 9)),
+    "r17_row_range": (77, 30, 41, 6, _rolls(77, 17)),
 }
 
 
@@ -140,6 +173,92 @@ def test_reverse_index_lists_each_rows_in_edges(case):
     assert int(deg[-3:].sum()) == 0  # rows without in-edges
     if hub:
         assert int(deg[7]) >= n_rows // 2
+
+
+def _sharded_rank1(dtype=torch.float64):
+    """Rank 1 of two in the sharded engine: its rows of a graph with a
+    hub on each rank's side (row 3 on rank 0's, row 100 on its own), the
+    reverse index of those rows over the whole table, as
+    ``layout.with_reverse_index`` builds it for a sharded task."""
+    from multimodal_umap_tpu_torch.parallel import Mesh, ShardingPlan
+
+    n, k = 160, 6
+    embed, nbrs, coef = _attr_problem(n, n, 0, k, 5, 12, dtype,
+                                      hub={3: 4 * C + 3, 100: 2 * C + 9},
+                                      dups=True)
+    plan = ShardingPlan(Mesh(rank=1, size=2, device=torch.device("cpu"),
+                             backend="gloo"))
+    row0 = plan.row_range(n)[0]
+    local_nbrs, local_coef = plan.rows(nbrs), plan.rows(coef)
+    return embed, local_nbrs, local_coef, row0
+
+
+def _plan_case(case, dtype=torch.float64):
+    """(embed, nbrs, coef, row0) of a chunk-plan case."""
+    if case == "sharded_rank1":
+        return _sharded_rank1(dtype)
+    n, n_rows, row0, k, d, hub, dups = ATTR_CASES[case]
+    embed, nbrs, coef = _attr_problem(n, n_rows, row0, k, d, 11, dtype,
+                                      hub=hub, dups=dups)
+    return embed, nbrs, coef, row0
+
+
+@pytest.mark.parametrize("case", HUB_CASES + ["sharded_rank1"])
+def test_chunk_plan_covers_each_in_edge_once(case):
+    """The backward's work items: every row has its items; a row of at
+    most C in-edges is one whole item, a longer one ceil(deg / C) chunks
+    of at most C, in CSR order and in consecutive partial rows; every
+    in-edge lies in exactly one item."""
+    embed, nbrs, _, row0 = _plan_case(case)
+    n = embed.shape[0]
+    rev = LT.reverse_index(nbrs, n)
+    off = rev.offsets.tolist()
+    deg = [off[t + 1] - off[t] for t in range(n)]
+    assert rev.multi_row.tolist() == [t for t in range(n) if deg[t] > C]
+    it = LT.attr_work_items(rev)
+    items = {}
+    for t, lo, hi, part in zip(*(it[f].tolist() for f in (
+            "row", "lo", "hi", "partial"))):
+        items.setdefault(t, []).append((part, lo, hi))
+    assert sorted(items) == list(range(n))
+    covered = []
+    for t, mine in items.items():
+        if deg[t] <= C:
+            assert mine == [(-1, off[t], off[t + 1])]
+        else:
+            parts = [m[0] for m in mine]
+            assert len(mine) == -(-deg[t] // C)
+            assert parts == list(range(parts[0], parts[0] + len(mine)))
+            assert [m[1] for m in mine] == list(range(off[t], off[t + 1], C))
+            assert [m[2] for m in mine][-1] == off[t + 1]
+        for _, lo, hi in mine:
+            assert 0 <= hi - lo <= C
+            covered += range(lo, hi)
+    assert sorted(covered) == list(range(nbrs.numel()))
+    partials = sorted(p for p in it["partial"].tolist() if p >= 0)
+    assert partials == list(range(rev.chunk_multi.shape[0]))
+    if case in ATTR_CASES:  # the hubs' exact in-degrees
+        for row, want in ATTR_CASES[case][5].items():
+            assert deg[row] == want
+            assert len(items[row]) == max(1, -(-want // C))
+    assert any(d == 0 for d in deg)  # rows with no in-edge
+    if "range" in case or case == "sharded_rank1":
+        n_rows = nbrs.shape[0]
+        outside = [t for t in rev.multi_row.tolist()
+                   if not row0 <= t < row0 + n_rows]
+        assert outside or case == "range_hub_inside"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_attr_gather_backward_is_autograd_sharded(dtype):
+    embed, nbrs, coef, row0 = _sharded_rank1(dtype)
+    _, want = _autograd(LT.fit_attraction_plain, embed, nbrs, coef, A, B,
+                        row0=row0)
+    got = LT._attr_grad_gather(embed, nbrs, coef,
+                               LT.reverse_index(nbrs, embed.shape[0]), 0.37,
+                               A, B, row0=row0)
+    _close(got, want, *TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
@@ -275,7 +394,8 @@ def test_non_cuda_device_raises_without_fallback():
                                       device="meta")
     with pytest.raises(ValueError, match="device"):
         LT.fit_attraction(embed, nbrs, coef, A, B,
-                          rev=LT.ReverseIndex(nbrs.reshape(-1), nbrs[:, 0]))
+                          rev=LT.ReverseIndex(nbrs.reshape(-1), nbrs[:, 0],
+                                              *(nbrs[:0, 0],) * 3))
     args = _rep_problem(20, 20, 0, 3, [1], 4, torch.float32, device="meta")
     with pytest.raises(ValueError, match="device"):
         LT.fit_repulsion(*args, A, B)
@@ -337,6 +457,14 @@ CUDA_ATTR = {  # n, n_rows, row0, k, d, hub, dups
     # past 128 columns the instance that holds no row in registers
     "d200": (600, 600, 0, 15, 200, True, True),
     "d300_row_range": (700, 310, 250, 9, 300, True, True),
+    # hubs at the chunk bounds (C, C + 1, several C in-edges)
+    "main_width_chunk_bounds": (4099, 4099, 0, 15, 64,
+                                {7: C, 8: C + 1, 9: 2 * C, 10: 5 * C + 3},
+                                True),
+    "row_range_chunk_bounds": (3000, 1100, 1700, 15, 64,
+                               {5: 3 * C + 1, 2000: C + 1, 2001: C}, True),
+    "d200_chunk_bounds": (600, 600, 0, 15, 200, {1: C + 1, 2: 3 * C},
+                          True),
 }
 CUDA_REP = {  # n, n_rows, row0, d, rolls
     "main_width": (4099, 4099, 0, 64, [0, 4098, 5, 512, 1024, 2049, 3000,
@@ -345,6 +473,12 @@ CUDA_REP = {  # n, n_rows, row0, d, rolls
     "d3_r1": (257, 257, 0, 3, [256]),
     "d200": (600, 600, 0, 200, [0, 599, 5, 300, 71, 2, 450, 9]),
     "d300_row_range": (700, 310, 250, 300, [0, 699, 31, 400]),
+    # more rounds than the kernels' batch of 8 (the anchor part carried
+    # across batches, past 128 columns in the output row)
+    "r9": (4099, 4099, 0, 64, _rolls(4099, 9)),
+    "r17_row_range": (3000, 1100, 1700, 64, _rolls(3000, 17)),
+    "d200_r9": (600, 600, 0, 200, _rolls(600, 9)),
+    "d200_r17_row_range": (700, 310, 250, 200, _rolls(700, 17)),
 }
 
 
@@ -460,3 +594,26 @@ def test_cuda_tensor_never_takes_the_plain_version(term, monkeypatch):
     assert (LT.FIT_ATTR_LAUNCHES + LT.FIT_REP_LAUNCHES,
             LT.FIT_ATTR_BWD_LAUNCHES + LT.FIT_REP_BWD_LAUNCHES) == (
                 counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("term,case", [("attr", "d33"), ("attr", "d128"),
+                                       ("rep", "r17_row_range")])
+def test_backward_launches_each_pass(term, case):
+    """A backward call launches its edge pass and its gather once each,
+    and the attraction's finishing pass once where a row has more than
+    CHUNK_EDGES in-edges (d33's hub), else not at all."""
+    _require_cuda()
+    fn, _, embed, args, kw = _cuda_case(term, case)
+    before = dict(LT.BWD_PASS_LAUNCHES)
+    _autograd(fn, embed, *args, **kw)
+    got = {k: v - before[k] for k, v in LT.BWD_PASS_LAUNCHES.items()}
+    hubs = term == "attr" and bool(
+        (torch.bincount(args[0].reshape(-1)) > C).any())
+    assert hubs == (case == "d33")
+    want = {f"fit_{term}_bwd_weights_kernel": 1, f"fit_{term}_bwd_kernel": 1}
+    if term == "attr":
+        want["fit_attr_bwd_finish_kernel"] = int(hubs)
+    assert {k: v for k, v in got.items() if k.startswith(f"fit_{term}")} \
+        == want
+    assert sum(got.values()) == sum(want.values())

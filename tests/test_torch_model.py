@@ -197,6 +197,7 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "multimodal_umap_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "profile_torch.py",
               ROOT / "main_torch.py", ROOT / "compare_knn_tile.py",
+              ROOT / "compare_layout_terms.py",
               ROOT / "spectral_null_space.py",
               ROOT / "scale_ladder_torch.py", ROOT / "mesh_path_torch.py",
               ROOT / "layout_graph_torch.py"]
