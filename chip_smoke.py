@@ -464,23 +464,26 @@ def bound_ms(nq, n, d, tile_k, bf16=True):
 
 KERNEL_FUNCTIONS = ("knn_tile_bf16_kernel", "knn_tile_f32_kernel",
                     "rownorm_bf16_kernel", "fit_attr_fwd_kernel",
-                    "fit_attr_bwd_kernel", "fit_rep_fwd_kernel",
-                    "fit_rep_bwd_kernel")
+                    "fit_attr_bwd_weights_kernel", "fit_attr_bwd_kernel",
+                    "fit_attr_bwd_finish_kernel", "fit_rep_fwd_kernel",
+                    "fit_rep_bwd_weights_kernel", "fit_rep_bwd_kernel")
 
 
 def ptxas_report(log: str) -> dict:
     """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``; a
-    template instance is named with its argument (``fit_attr_fwd_kernel<2>``:
-    two of a row's values a lane)."""
+    template instance is named with its arguments
+    (``fit_attr_fwd_kernel<16,4>``: 16 lanes a row, 4 columns a load)."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            cur = next((k for k in KERNEL_FUNCTIONS if k in m.group(1)),
-                       m.group(1))
-            arg = re.search(r"ILi(\d+)E", m.group(1))
-            if arg and cur in KERNEL_FUNCTIONS:
-                cur = f"{cur}<{arg.group(1)}>"
+            name = m.group(1)
+            cur = next((k for k in KERNEL_FUNCTIONS
+                        if re.search(k + r"(I|E|v|$)", name)), name)
+            args = re.search(re.escape(cur) + r"I((?:Li\d+E)+)E", name)
+            if args and cur in KERNEL_FUNCTIONS:
+                cur += "<" + ",".join(re.findall(r"Li(\d+)E",
+                                                 args.group(1))) + ">"
             out[cur] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -753,8 +756,8 @@ def layout_terms(main_inputs: dict, dev) -> dict:
     its plain version at the main path's first fit-layout call, at a
     rank's row range of it (the second half: row0 = N / 2, as rank 1 of
     two reads the gathered table), at the scale rung's 524,288 x 64 and
-    at the main path's rows with an --out_dim past 128 (D = 200: the
-    kernels' instance that holds no row in registers); and the attraction
+    at the main path's rows with an --out_dim past 128 (D = 200: two
+    column tiles a row); and the attraction
     on a random graph of the main path's shape (no hubs), beside its
     hub-heavy main graph."""
     out = {"phase": "layout_terms", "library": "none (no one call)",

@@ -44,39 +44,38 @@
 // coefficients (and in the backward the CSR) and writes the
 // gradient, ~20 MB forward + backward (6 us at 3.35 TB/s); the repulsion
 // ~26 MB. Each anchor-neighbour pair needs ~5 D operations and 3
-// transcendentals, far below the f32 rate. The forward kernels give a warp
-// a row, hold its D values in registers (V = D/32 a lane, D <= 128; a
-// wider row is read again at each use), read each neighbour row as
-// coalesced 128-byte lines (the 8 MB table stays in the 50 MB L2), skip
-// slots whose coefficient is 0 and reduce each pair in the warp.
+// transcendentals, far below the f32 rate.
 //
-// What holds the backwards back is latency, not bytes: every pair is a
-// chain of dependent loads (index, coefficient or weight, a random row
-// from L2, or from HBM past 50 MB of table). A first version gave each
-// output row to one warp that walked its pairs one at a time, each chain
-// followed by a warp reduction and two powf; it computed every kept pair's
-// weight twice (once from each end), and the attraction's hub rows (up to
-// 590 in-edges, 485 kept, against a mean of 15 on the main graph) left
-// one warp working 40x longer than the rest. The design now:
-// * An edge pass, a group of G lanes an anchor row (16 lanes x one
-//   16-byte load a row at D = 64; 4 to 32 lanes by D, 4-byte loads where
-//   D % 4 != 0). It loads BATCH pairs' rows before any reduction, reduces
-//   them side by side, and lane s of the group computes pair s's weight,
-//   once: w[i k + m] = 2 g coef dfds(s) (attraction), w[i R + r] = 2 g / R
-//   rep_coef dpsids(s) (repulsion), 0 where the coefficient is 0 (no row
-//   read) or s < 1e-6, into an f32 scratch the wrapper allocates. Then it
-//   writes the row's anchor part to the output row, sum w (x_i - x_j),
-//   pairs in order: the attraction from the rows still in registers, the
-//   repulsion from the rows read again from L1 (holding them across its
-//   curve's two divisions spilled registers).
+// What holds them back is latency, not bytes: every pair is a chain of
+// dependent loads (index, coefficient, a random row from L2, or from HBM
+// past 50 MB of table) ending in a reduction and a curve. The first
+// versions gave a row to one warp that walked its pairs one at a time (one
+// row load in flight, a 5-level warp reduction and a curve computed by all
+// 32 lanes a pair; backward, each kept pair's weight from both ends, and
+// the attraction's hub rows, up to 590 in-edges against a mean of 15 on
+// the main graph, left one warp working 40x longer than the rest). Now a
+// group of G lanes takes a row (16 lanes x one 16-byte load at D = 64; 4
+// to 32 lanes by D, 4-byte loads where D % 4 != 0 or a table is not
+// 16-byte aligned), issues BATCH pairs' index loads, then their rows,
+// before any reduction, reduces them side by side, and lane s of the group
+// takes pair s's curve, once. No row is read for a coefficient of 0. The
+// kernels:
+// * The forwards: the terms of an anchor row's k slots (attraction) or R
+//   rounds (repulsion), summed by each lane over its own pairs, then by
+//   the group, into the row's partial.
+// * A backward's edge pass: lane s computes pair s's weight, w[i k + m] =
+//   2 g coef dfds(s) (attraction), w[i R + r] = 2 g / R rep_coef dpsids(s)
+//   (repulsion), 0 where s < 1e-6, into an f32 scratch the wrapper
+//   allocates. Then it writes the row's anchor part to the output row,
+//   sum w (x_i - x_j), pairs in order: the attraction from the rows still
+//   in registers, the repulsion from the rows read again from L1 (holding
+//   them across its curve's two divisions spilled registers).
 // * A gather pass of loads and FMAs: no reduction, no transcendental. Its
 //   items issue BATCH pairs' index, weight and row loads before their
 //   arithmetic and end the output row from its anchor part: the
 //   attraction's in-edges, -= w[e_p] (x_{row0 + e_p / k} - x_t) in CSR
-//   order; the repulsion's negative part, -= w (x_ia - x_t) in round order,
-//   the offsets reduced to [0, N) once a block in shared memory (no 64-bit
-//   division a pair). The difference form is kept: (sum w) x_t - sum w x_j
-//   would cancel.
+//   order; the repulsion's negative part, -= w (x_ia - x_t) in round order.
+//   The difference form is kept: (sum w) x_t - sum w x_j would cancel.
 // * The attraction's work list is balanced by the chunk plan: a row of at
 //   most C in-edges (ops/layout_terms.py's CHUNK_EDGES = 32, passed to the
 //   gather at launch) is one item that ends its gradient row; a longer row
@@ -84,13 +83,16 @@
 //   row, and a finishing pass adds each such row's partials to its anchor
 //   part in chunk order. The main graph's hub of 590 in-edges becomes 19
 //   items that run side by side.
-// Any D runs in bounded registers: the gather and finishing passes walk
-// the row in tiles of G x VEC columns (at most 128); past one tile the edge
-// pass sums the anchor part in the output row, each lane its own columns.
-// Times (H100 80GB HBM3, 700.00 W; PERF.md, `compare_layout_terms.py`):
-// at the main path's first fit-layout call the attraction backward 0.539 ms
-// before, 0.087 now (edge 0.037, gather 0.045, finish 0.004); the
-// repulsion backward 0.156 before, 0.056 now (edge 0.032, gather 0.022).
+// The repulsion's kernels reduce the R offsets to [0, N) once a block in
+// shared memory (no 64-bit division a pair). Any D runs in bounded
+// registers: every kernel walks a row in tiles of G x VEC columns (at most
+// 128), holding the anchor row in registers where one tile covers it; past
+// one tile the edge pass sums the anchor part in the output row.
+// Device ms a call at the main path's first fit-layout call (31,744 x 64,
+// k = 15, R = 8; H100 80GB HBM3, 700.00 W; PERF.md), one warp a row before,
+// lane groups now: attraction forward 0.082 -> 0.032, backward 0.539 ->
+// 0.087 (edge 0.037, gather 0.045, finish 0.004); repulsion forward 0.067
+// -> 0.025, backward 0.156 -> 0.056 (edge 0.032, gather 0.022).
 //
 // C entry points, bound with ctypes, one a kernel (a backward's passes are
 // launched by its wrapper in order, each counted); they launch on the
@@ -102,65 +104,14 @@
 
 namespace {
 
-constexpr int WARPS = 8;  // forward: rows (warps) per 256-thread block
-constexpr int BLOCK = 32 * WARPS;
+constexpr int BLOCK = 256;  // threads a block
 constexpr float CLAMP = 1e-6f;
-// Backward: the pairs whose loads a lane group issues before their
-// arithmetic.
+// The pairs whose loads a lane group issues before their arithmetic.
 constexpr int BATCH = 8;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {
-  // xor butterfly: every lane ends with the same bits (IEEE addition
-  // commutes), so the lanes agree on s and on its mask.
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-// One table row as a warp reads it. V > 0 (D <= 32 V): lane l holds
-// columns l + 32 j, j < V, in registers, zero past D. V = 0 (any D):
-// nothing is held, and each use reads the row again, 32 columns a stride
-// (from L1 / L2: the row was just read).
-template <int V>
-struct Row {
-  const float* p;
-  float v[V > 0 ? V : 1];
-  __device__ __forceinline__ Row(const float* __restrict__ x, int64_t row,
-                                 int D, int lane)
-      : p(x + row * (int64_t)D) {
-    if constexpr (V > 0) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const int d = lane + 32 * j;
-        v[j] = d < D ? __ldg(p + d) : 0.f;
-      }
-    }
-  }
-};
-
-// |u - w|^2 over the row: each lane's columns in order, then the warp.
-template <int V>
-__device__ __forceinline__ float sq_dist(const Row<V>& u, const Row<V>& w,
-                                         int D, int lane) {
-  float p = 0.f;
-  if constexpr (V > 0) {
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const float e = u.v[j] - w.v[j];
-      p = fmaf(e, e, p);
-    }
-  } else {
-    for (int d = lane; d < D; d += 32) {
-      const float e = __ldg(u.p + d) - __ldg(w.p + d);
-      p = fmaf(e, e, p);
-    }
-  }
-  return warp_sum(p);
-}
-
-// VEC consecutive columns of a row, as one lane of the backward's lane
-// groups holds them (VEC = 4: one 16-byte load, row and column aligned).
+// VEC consecutive columns of a row, as one lane of a lane group holds
+// them (VEC = 4: one 16-byte load, row and column aligned).
 template <int VEC>
 struct Frag {
   float v[VEC];
@@ -286,27 +237,69 @@ __device__ __forceinline__ int64_t wrap(int64_t v, int64_t n) {
   return v < 0 ? v + n : v;
 }
 
-template <int V>
+// A forward's batch: sq[s] += |x_i - x_{id[s]}|^2 over this lane's columns,
+// for the pairs with on[s] (no row read for the others), each tile's BATCH
+// row loads before their arithmetic; u1: x_i's tile where one covers it.
+template <int G, int VEC>
+__device__ __forceinline__ void lane_sq(
+    float (&sq)[BATCH], const float* __restrict__ x,
+    const float* __restrict__ xi, const int64_t (&id)[BATCH],
+    const bool (&on)[BATCH], const Frag<VEC>& u1, int col1, int D) {
+  for (int col = col1; col < D; col += G * VEC) {
+    const Frag<VEC> u = D <= G * VEC ? u1 : frag_load<VEC>(xi + col);
+    Frag<VEC> y[BATCH];
+#pragma unroll
+    for (int s = 0; s < BATCH; ++s)
+      y[s] = on[s] ? frag_load<VEC>(x + id[s] * D + col) : u;
+#pragma unroll
+    for (int s = 0; s < BATCH; ++s) sq[s] = frag_sq<VEC>(sq[s], u, y[s]);
+  }
+}
+
+// The attraction forward: partial[i] = sum_m coef[i,m] log1p(a s^b) over
+// the k slots of anchor row row0 + i. A group of G lanes a row; lane s of
+// the group takes slot s's curve and sums its slots' terms in order.
+template <int G, int VEC>
 __global__ void __launch_bounds__(BLOCK)
     fit_attr_fwd_kernel(const float* __restrict__ x,
                         const int64_t* __restrict__ nbrs,
                         const float* __restrict__ coef,
                         float* __restrict__ partial, int n_rows, int k, int D,
                         int64_t row0, float a, float b) {
-  const int i = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (i >= n_rows) return;
-  const Row<V> xi(x, row0 + i, D, lane);
-  float acc = 0.f;
-  for (int m = 0; m < k; ++m) {
-    const int64_t e = (int64_t)i * k + m;
-    const float c = coef[e];
-    if (c == 0.f) continue;  // c * finite = 0: the row is not read
-    const Row<V> y(x, nbrs[e], D, lane);
-    const float s = clamped(sq_dist<V>(xi, y, D, lane));
-    acc += c * log1pf(a * powf(s, b));
+  constexpr int NS = (BATCH + G - 1) / G;  // slots a lane's curve takes
+  const int lane = threadIdx.x % G;
+  const int64_t i = ((int64_t)blockIdx.x * BLOCK + threadIdx.x) / G;
+  const bool live = i < n_rows;  // a group past the rows joins the shuffles
+  const float* xi = x + (row0 + (live ? i : 0)) * D;
+  const int col1 = lane * VEC;  // x_i held in registers where one tile fits
+  const Frag<VEC> u1 = D <= G * VEC && col1 < D ? frag_load<VEC>(xi + col1)
+                                                : frag_zero<VEC>();
+  float acc = 0.f;  // this lane's terms
+  for (int m0 = 0; m0 < k; m0 += BATCH) {
+    float c[BATCH], sq[BATCH];
+    int64_t id[BATCH];
+    bool on[BATCH];
+#pragma unroll
+    for (int s = 0; s < BATCH; ++s) {
+      const bool in = live && m0 + s < k;
+      const int64_t e = i * k + m0 + s;
+      c[s] = in ? coef[e] : 0.f;
+      id[s] = in ? nbrs[e] : 0;
+      on[s] = c[s] != 0.f;  // c * finite = 0: no row read
+      sq[s] = 0.f;
+    }
+    lane_sq<G, VEC>(sq, x, xi, id, on, u1, col1, D);
+#pragma unroll
+    for (int s = 0; s < BATCH; ++s) sq[s] = group_sum<G>(sq[s]);
+#pragma unroll
+    for (int q = 0; q < NS; ++q) {
+      const int s = q * G + lane;
+      const float cs = pick(c, s);  // 0 past the batch and past k
+      if (cs != 0.f) acc += cs * log1pf(a * powf(clamped(pick(sq, s)), b));
+    }
   }
-  if (lane == 0) partial[i] = acc;
+  acc = group_sum<G>(acc);
+  if (live && lane == 0) partial[i] = acc;
 }
 
 // The attraction backward's edge pass: w[i k + m] = 2 g coef[i,m]
@@ -495,32 +488,6 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-template <int V>
-__global__ void __launch_bounds__(BLOCK)
-    fit_rep_fwd_kernel(const float* __restrict__ x,
-                       const int64_t* __restrict__ pi,
-                       const int64_t* __restrict__ rolls,
-                       const float* __restrict__ rep_coef,
-                       float* __restrict__ partial, int64_t N, int n_rows,
-                       int R, int D, int64_t row0, float a, float b) {
-  const int il = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (il >= n_rows) return;
-  const float c = rep_coef[il];
-  if (c == 0.f) {  // c * finite = 0: no row is read
-    if (lane == 0) partial[il] = 0.f;
-    return;
-  }
-  const int64_t i = row0 + il;
-  const Row<V> xi(x, i, D, lane);
-  float acc = 0.f;
-  for (int r = 0; r < R; ++r) {
-    const Row<V> y(x, pi[wrap(i + rolls[r], N)], D, lane);
-    acc += rep_psi(clamped(sq_dist<V>(xi, y, D, lane)), a, b);
-  }
-  if (lane == 0) partial[il] = c * (acc / (float)R);
-}
-
 // The R round offsets reduced to [0, N) into shared memory, so that the
 // per-pair index arithmetic needs no 64-bit division. Every thread of the
 // block calls it (a barrier).
@@ -539,6 +506,55 @@ __device__ __forceinline__ int64_t add_mod(int64_t v, int64_t off, int64_t N) {
 __device__ __forceinline__ int64_t sub_mod(int64_t v, int64_t off, int64_t N) {
   v -= off;
   return v < 0 ? v + N : v;
+}
+
+// The repulsion forward: partial[il] = rep_coef[il] (sum_r psi(s_r) / R)
+// for anchor row0 + il against its R round negatives, 0 where rep_coef is
+// 0. A group of G lanes a row, as in the attraction forward.
+template <int G, int VEC>
+__global__ void __launch_bounds__(BLOCK)
+    fit_rep_fwd_kernel(const float* __restrict__ x,
+                       const int64_t* __restrict__ pi,
+                       const int64_t* __restrict__ rolls,
+                       const float* __restrict__ rep_coef,
+                       float* __restrict__ partial, int64_t N, int n_rows,
+                       int R, int D, int64_t row0, float a, float b) {
+  extern __shared__ int64_t offs[];
+  load_offsets(offs, rolls, R, N);
+  constexpr int NS = (BATCH + G - 1) / G;
+  const int lane = threadIdx.x % G;
+  const int64_t il = ((int64_t)blockIdx.x * BLOCK + threadIdx.x) / G;
+  const bool live = il < n_rows;  // a group past the rows joins the shuffles
+  const float c = live ? rep_coef[il] : 0.f;
+  const int64_t i = row0 + (live ? il : 0);
+  const float* xi = x + i * D;
+  const int col1 = lane * VEC;
+  const Frag<VEC> u1 = c != 0.f && D <= G * VEC && col1 < D
+                           ? frag_load<VEC>(xi + col1)
+                           : frag_zero<VEC>();
+  float acc = 0.f;  // this lane's terms
+  for (int r0 = 0; r0 < R; r0 += BATCH) {
+    float sq[BATCH];
+    int64_t id[BATCH];
+    bool on[BATCH];
+#pragma unroll
+    for (int s = 0; s < BATCH; ++s) {
+      on[s] = c != 0.f && r0 + s < R;
+      id[s] = on[s] ? pi[add_mod(i, offs[r0 + s], N)] : 0;
+      sq[s] = 0.f;
+    }
+    if (c != 0.f) lane_sq<G, VEC>(sq, x, xi, id, on, u1, col1, D);
+#pragma unroll
+    for (int s = 0; s < BATCH; ++s) sq[s] = group_sum<G>(sq[s]);
+#pragma unroll
+    for (int q = 0; q < NS; ++q) {
+      const int s = q * G + lane;
+      if (s < BATCH && r0 + s < R && c != 0.f)  // on[s], no runtime index
+        acc += rep_psi(clamped(pick(sq, s)), a, b);
+    }
+  }
+  acc = group_sum<G>(acc);
+  if (live && lane == 0) partial[il] = c * (acc / (float)R);
 }
 
 // The repulsion backward's edge pass: w[il R + r] = 2 g / R rep_coef[il]
@@ -688,48 +704,31 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-inline unsigned blocks_for(int64_t rows) {
-  return (unsigned)((rows + WARPS - 1) / WARPS);
-}
-
 // Blocks for `items` lane groups of G lanes.
 inline unsigned group_blocks(int64_t items, int G) {
   return (unsigned)((items * G + BLOCK - 1) / BLOCK);
 }
 
-// The Row instance for D: values a lane holds (1, 2 or 4) for D <= 128;
-// past that 0, the instance that holds none (any D).
-inline int lane_values(int D) {
-  return D <= 32 ? 1 : D <= 64 ? 2 : D <= 128 ? 4 : 0;
-}
-
-#define LT_DISPATCH(D_, LAUNCH)          \
-  if ((D_) <= 0) return (int)cudaErrorInvalidValue; \
-  switch (lane_values(D_)) {             \
-    case 1: LAUNCH(1); break;            \
-    case 2: LAUNCH(2); break;            \
-    case 4: LAUNCH(4); break;            \
-    default: LAUNCH(0); break;           \
-  }
-
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// The backward's columns a lane loads at once: 4 (one 16-byte load) when
-// every row it touches is 16-byte aligned, else 1.
-inline int vec_width(int D, const void* a, const void* b, const void* c) {
+// The columns a lane loads at once: 4 (one 16-byte load) when every row
+// the kernel touches is 16-byte aligned, else 1.
+inline int vec_width(int D, const void* a, const void* b = nullptr,
+                     const void* c = nullptr) {
   return D % 4 == 0 && aligned16(a) && aligned16(b) && aligned16(c) ? 4 : 1;
 }
 
-// The backward's lanes a row (4 to 32): enough that one pass of the group
+// The lanes a row (4 to 32): enough that one pass of the group
 // covers D when D / VEC <= 32; wider rows take several G x VEC tiles.
 inline int group_lanes(int D, int vec) {
   const int cols = (D + vec - 1) / vec;
   return cols <= 4 ? 4 : cols <= 8 ? 8 : cols <= 16 ? 16 : 32;
 }
 
-#define BWD_DISPATCH(G_, VEC_, LAUNCH)                 \
+// The lane-group instance for (G, VEC)
+#define GROUP_DISPATCH(G_, VEC_, LAUNCH)               \
   switch ((G_) * 10 + (VEC_)) {                        \
     case 41: LAUNCH(4, 1); break;                      \
     case 81: LAUNCH(8, 1); break;                      \
@@ -742,19 +741,25 @@ inline int group_lanes(int D, int vec) {
     default: return (int)cudaErrorInvalidValue;        \
   }
 
+// Shared memory for the R round offsets, reduced to [0, N), that every
+// repulsion kernel holds.
+inline size_t offsets_smem(int R) { return (size_t)R * sizeof(int64_t); }
+
 }  // namespace
 
 extern "C" int fit_attr_fwd_launch(const void* x, const void* nbrs,
                                    const void* coef, void* partial,
                                    int n_rows, int k, int D, long long row0,
                                    float a, float b, void* stream) {
-  if (n_rows <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0 || k <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define LAUNCH(V)                                                         \
-  fit_attr_fwd_kernel<V><<<blocks_for(n_rows), BLOCK, 0, s>>>(            \
-      (const float*)x, (const int64_t*)nbrs, (const float*)coef,         \
+  const int vec = vec_width(D, x);
+  const int G = group_lanes(D, vec);
+#define LAUNCH(G_, V_)                                                      \
+  fit_attr_fwd_kernel<G_, V_><<<group_blocks(n_rows, G_), BLOCK, 0, s>>>(   \
+      (const float*)x, (const int64_t*)nbrs, (const float*)coef,           \
       (float*)partial, n_rows, k, D, (int64_t)row0, a, b)
-  LT_DISPATCH(D, LAUNCH)
+  GROUP_DISPATCH(G, vec, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
 }
@@ -778,7 +783,7 @@ extern "C" int fit_attr_bwd_weights_launch(
       (const float*)x, (const int64_t*)nbrs, (const float*)coef,           \
       (const float*)grad_out, (float*)w, (float*)grad, n_rows, k, D,       \
       (int64_t)row0, a, b)
-  BWD_DISPATCH(G, vec, LAUNCH)
+  GROUP_DISPATCH(G, vec, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
 }
@@ -803,7 +808,7 @@ extern "C" int fit_attr_bwd_gather_launch(
       (const int32_t*)multi_first, (const int32_t*)chunk_multi,            \
       (float*)grad, (float*)partial, (int64_t)N, n_chunks, chunk, n_rows,  \
       k, D, (int64_t)row0)
-  BWD_DISPATCH(G, vec, LAUNCH)
+  GROUP_DISPATCH(G, vec, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
 }
@@ -822,7 +827,7 @@ extern "C" int fit_attr_bwd_finish_launch(
       (const float*)partial, (const int32_t*)multi_row,                    \
       (const int32_t*)multi_first, (float*)grad, n_multi, n_rows, D,       \
       (int64_t)row0)
-  BWD_DISPATCH(G, vec, LAUNCH)
+  GROUP_DISPATCH(G, vec, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
 }
@@ -832,23 +837,25 @@ extern "C" int fit_rep_fwd_launch(const void* x, const void* pi,
                                   void* partial, long long N, int n_rows,
                                   int R, int D, long long row0, float a,
                                   float b, void* stream) {
-  if (N <= 0 || n_rows <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = offsets_smem(R);
+  if (N <= 0 || n_rows <= 0 || R <= 0 || D <= 0 || smem > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define LAUNCH(V)                                                         \
-  fit_rep_fwd_kernel<V><<<blocks_for(n_rows), BLOCK, 0, s>>>(             \
-      (const float*)x, (const int64_t*)pi, (const int64_t*)rolls,        \
-      (const float*)rep_coef, (float*)partial, (int64_t)N, n_rows, R, D, \
+  const int vec = vec_width(D, x);
+  const int G = group_lanes(D, vec);
+#define LAUNCH(G_, V_)                                                      \
+  fit_rep_fwd_kernel<G_, V_><<<group_blocks(n_rows, G_), BLOCK, smem, s>>>( \
+      (const float*)x, (const int64_t*)pi, (const int64_t*)rolls,          \
+      (const float*)rep_coef, (float*)partial, (int64_t)N, n_rows, R, D,   \
       (int64_t)row0, a, b)
-  LT_DISPATCH(D, LAUNCH)
+  GROUP_DISPATCH(G, vec, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
 }
 
 // The repulsion's backward, two passes launched in this order: the edge
 // pass into w (n_rows * R floats) and the anchor rows of grad, then the
-// gather over the N rows. Both hold the R offsets, reduced to [0, N), in
-// shared memory.
-inline size_t offsets_smem(int R) { return (size_t)R * sizeof(int64_t); }
+// gather over the N rows.
 
 extern "C" int fit_rep_bwd_weights_launch(
     const void* x, const void* pi, const void* rolls, const void* rep_coef,
@@ -866,7 +873,7 @@ extern "C" int fit_rep_bwd_weights_launch(
       (const float*)x, (const int64_t*)pi, (const int64_t*)rolls,         \
       (const float*)rep_coef, (const float*)grad_out, (float*)w,          \
       (float*)grad, (int64_t)N, n_rows, R, D, (int64_t)row0, a, b)
-  BWD_DISPATCH(G, vec, LAUNCH)
+  GROUP_DISPATCH(G, vec, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
 }
@@ -886,7 +893,7 @@ extern "C" int fit_rep_bwd_gather_launch(
       (const float*)x, (const int64_t*)pi_inv, (const int64_t*)rolls,     \
       (const float*)w, (float*)grad, (int64_t)N, n_rows, R, D,            \
       (int64_t)row0)
-  BWD_DISPATCH(G, vec, LAUNCH)
+  GROUP_DISPATCH(G, vec, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
 }

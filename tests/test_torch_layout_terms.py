@@ -449,12 +449,12 @@ def test_sharded_engine_calls_the_same_terms(p, tmp_path):
 
 # --- on the card ---------------------------------------------------------------
 
-CUDA_ATTR = {  # n, n_rows, row0, k, d, hub, dups
+CUDA_ATTR = {  # n, n_rows, row0, k, d, hub, dups[, extras]
     "main_width": (4099, 4099, 0, 15, 64, True, True),
     "row_range": (3000, 1100, 1700, 15, 64, False, True),
     "d33": (517, 517, 0, 7, 33, True, False),
     "d128": (300, 300, 0, 5, 128, False, False),
-    # past 128 columns the instance that holds no row in registers
+    # past 128 columns: two or three column tiles a row
     "d200": (600, 600, 0, 15, 200, True, True),
     "d300_row_range": (700, 310, 250, 9, 300, True, True),
     # hubs at the chunk bounds (C, C + 1, several C in-edges)
@@ -465,8 +465,19 @@ CUDA_ATTR = {  # n, n_rows, row0, k, d, hub, dups
                                {5: 3 * C + 1, 2000: C + 1, 2001: C}, True),
     "d200_chunk_bounds": (600, 600, 0, 15, 200, {1: C + 1, 2: 3 * C},
                           True),
+    # the forward's edges: rows whose every coefficient is 0 (a run of
+    # whole blocks of rows and single rows between live ones); a table
+    # one float past an aligned start (4-byte loads, two 32-column tiles
+    # at D = 64); k at one and two batches of 8 slots
+    "zero_coef_rows": (4099, 4099, 0, 15, 64, True, True,
+                       {"zero_rows": True}),
+    "zero_coef_rows_row_range": (3000, 1100, 1700, 15, 64, False, True,
+                                 {"zero_rows": True}),
+    "unaligned_d64": (4099, 4099, 0, 15, 64, True, True, {"offset": True}),
+    "k8": (4099, 4099, 0, 8, 64, True, True),
+    "k16": (4099, 4099, 0, 16, 64, True, True),
 }
-CUDA_REP = {  # n, n_rows, row0, d, rolls
+CUDA_REP = {  # n, n_rows, row0, d, rolls[, extras]
     "main_width": (4099, 4099, 0, 64, [0, 4098, 5, 512, 1024, 2049, 3000,
                                        7]),
     "row_range": (3000, 1100, 1700, 64, [0, 2999, 17, 800]),
@@ -479,37 +490,76 @@ CUDA_REP = {  # n, n_rows, row0, d, rolls
     "r17_row_range": (3000, 1100, 1700, 64, _rolls(3000, 17)),
     "d200_r9": (600, 600, 0, 200, _rolls(600, 9)),
     "d200_r17_row_range": (700, 310, 250, 200, _rolls(700, 17)),
+    # the forward's edges: runs of rows with rep_coef == 0 beside the
+    # every-fifth ones; a table one float past an aligned start
+    "zero_coef_rows": (4099, 4099, 0, 64, [0, 4098, 5, 512, 1024, 2049,
+                                           3000, 7], {"zero_rows": True}),
+    "zero_coef_rows_r9_row_range": (3000, 1100, 1700, 64, _rolls(3000, 9),
+                                    {"zero_rows": True}),
+    "unaligned_d64": (4099, 4099, 0, 64, [0, 4098, 5, 512, 1024, 2049, 3000,
+                                          7], {"offset": True}),
 }
 
 
+def _zero_rows(coef):
+    """Sets whole rows of the coefficients to 0 in place: rows 64-127
+    (whole blocks of lane groups), every seventh row and row 1 (a group
+    beside a live one in its warp)."""
+    coef[64:128] = 0.0
+    coef[::7] = 0.0
+    coef[1] = 0.0
+
+
+def _offset_view(e):
+    """``e``'s values in a contiguous view one float past the start of its
+    allocation (not 16-byte aligned), differentiable."""
+    return torch.cat([e.new_zeros(1), e.reshape(-1)])[1:].view(e.shape)
+
+
 def _cuda_attr(case):
-    n, n_rows, row0, k, d, hub, dups = CUDA_ATTR[case]
+    n, n_rows, row0, k, d, hub, dups, *extras = CUDA_ATTR[case]
     embed, nbrs, coef = _attr_problem(n, n_rows, row0, k, d, 9,
                                       torch.float32, hub=hub, dups=dups,
                                       device="cuda")
-    return embed, (nbrs, coef, A, B), dict(row0=row0)
+    if extras and extras[0].get("zero_rows"):
+        _zero_rows(coef)
+    return embed, (nbrs, coef, A, B), dict(row0=row0), *extras
 
 
 def _cuda_rep(case):
-    n, n_rows, row0, d, rolls = CUDA_REP[case]
+    n, n_rows, row0, d, rolls, *extras = CUDA_REP[case]
     embed, *rest = _rep_problem(n, n_rows, row0, d, rolls, 10,
                                 torch.float32, device="cuda")
-    return embed, (*rest, A, B), dict(row0=row0)
+    if extras and extras[0].get("zero_rows"):
+        _zero_rows(rest[-1])
+    return embed, (*rest, A, B), dict(row0=row0), *extras
 
 
 def _cuda_case(term, case):
     """(kernel term, plain term, embed, args, keywords); the attraction's
     reverse index is built here, as ``train_layout`` builds it before any
-    capture."""
+    capture; an ``offset`` case hands the kernels the table one float past
+    an aligned start."""
     if term == "rep":
-        return LT.fit_repulsion, LT.fit_repulsion_plain, *_cuda_rep(case)
-    embed, args, kw = _cuda_attr(case)
-    rev = LT.reverse_index(args[0], embed.shape[0])
+        fn, plain = LT.fit_repulsion, LT.fit_repulsion_plain
+        embed, args, kw, *extras = _cuda_rep(case)
+    else:
+        embed, args, kw, *extras = _cuda_attr(case)
+        rev = LT.reverse_index(args[0], embed.shape[0])
+        plain = LT.fit_attraction_plain
 
-    def kernel(e, *a, **k):
-        return LT.fit_attraction(e, *a, rev=rev, **k)
+        def fn(e, *a, **k):
+            return LT.fit_attraction(e, *a, rev=rev, **k)
 
-    return kernel, LT.fit_attraction_plain, embed, args, kw
+    if not (extras and extras[0].get("offset")):
+        return fn, plain, embed, args, kw
+
+    def unaligned(e, *a, **k):
+        view = _offset_view(e)
+        assert view.data_ptr() % 16 == 4
+        return fn(view, *a, **k)
+
+    return unaligned, plain, embed, args, kw
 
 
 def _f64(args):
