@@ -12,6 +12,11 @@ device):
     output-curve weights, initialized by the affinity-weighted average of
     the training data rows (the JAX package's fixed invert semantics).
 
+Each step runs under a ``utils.prof`` span of the caller's phase:
+``knn`` (the search, the ring's and the fit's all-gather included),
+``sigma`` (the fuzzy weights or the output-curve weights), ``union``
+(the reverse-edge lookup and both symmetrized views), ``spectral``.
+
 Under a mesh (``mesh=``, more than one rank) every mode takes this
 rank's row shards of its tables and returns this rank's rows: the kNN
 rides the ring (ops/knn_stream.py), so no rank holds a feature table,
@@ -41,6 +46,7 @@ from ..ops.graph import (
 from ..ops.knn import knn, resolve_engine
 from ..ops.spectral import spectral_embedding
 from ..parallel.collectives import all_gather_tensor
+from ..utils import prof
 
 
 def _ring_ok(mesh, num_refs: int) -> bool:
@@ -96,26 +102,40 @@ class ModalityEncoder:
         for the layout engine; both from one reverse-edge lookup) and its
         spectral embedding. Under a mesh ``features`` are this rank's
         rows and the results are whole on every rank."""
-        engine = resolve_engine(self.knn_engine, features.device)
         ring = mesh is not None and mesh.size > 1
-        if ring:
-            dists, nbrs = _ring_knn(features, features, self.k_neighbors,
-                                    mesh, exclude_self=True, engine=engine)
-            dists = all_gather_tensor(dists, mesh)
-            nbrs = all_gather_tensor(nbrs, mesh)
-        else:
-            dists, nbrs = knn(features, features, self.k_neighbors,
-                              exclude_self=True, engine=engine)
-        weights, rhos, sigmas = fuzzy_weights(dists)
-        rev = _reverse_edge_weights(nbrs, weights)
-        graph = symmetrize(nbrs, weights, rev)
-        dense = symmetrize_dense(nbrs, weights, rev)
+        dists, nbrs = self._knn(features, features, mesh, exclude_self=True,
+                                gather=True)
+        with prof.span("sigma"):
+            weights, rhos, sigmas = fuzzy_weights(dists)
+        with prof.span("union"):
+            rev = _reverse_edge_weights(nbrs, weights)
+            graph = symmetrize(nbrs, weights, rev)
+            dense = symmetrize_dense(nbrs, weights, rev)
         self.sigmas = sigmas
         self.rhos = rhos
-        embed = spectral_embedding(graph, self.out_dim,
-                                   method=self.spectral_method,
-                                   mesh=mesh if ring else None)
+        with prof.span("spectral"):
+            embed = spectral_embedding(graph, self.out_dim,
+                                       method=self.spectral_method,
+                                       mesh=mesh if ring else None)
         return graph, dense, embed
+
+    def _knn(self, query: torch.Tensor, refs: torch.Tensor, mesh, *,
+             exclude_self: bool = False, gather: bool = False
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(dists, nbrs) of the query rows, under the ``knn`` span: on
+        the ring under a mesh of more than one rank (``gather``: then
+        all-gathered whole), else :func:`knn`."""
+        engine = resolve_engine(self.knn_engine, query.device)
+        with prof.span("knn"):
+            if mesh is None or mesh.size <= 1:
+                return knn(query, refs, self.k_neighbors,
+                           exclude_self=exclude_self, engine=engine)
+            dists, nbrs = _ring_knn(query, refs, self.k_neighbors, mesh,
+                                    exclude_self=exclude_self, engine=engine)
+            if gather:
+                dists = all_gather_tensor(dists, mesh)
+                nbrs = all_gather_tensor(nbrs, mesh)
+            return dists, nbrs
 
     def transform_graph(self, query: torch.Tensor,
                         train_features: torch.Tensor,
@@ -124,16 +144,12 @@ class ModalityEncoder:
         """Query-to-train (nbrs, weights) + weighted-average init. Under
         a mesh every table is this rank's rows (queries padded to a mesh
         multiple)."""
-        engine = resolve_engine(self.knn_engine, query.device)
-        if mesh is not None and mesh.size > 1:
-            dists, nbrs = _ring_knn(query, train_features, self.k_neighbors,
-                                    mesh, exclude_self=False, engine=engine)
+        dists, nbrs = self._knn(query, train_features, mesh)
+        with prof.span("sigma"):
             weights, _, _ = fuzzy_weights(dists)
+        if mesh is not None and mesh.size > 1:
             return nbrs, weights, _ring_embed_query(nbrs, weights,
                                                     train_embeds, mesh)
-        dists, nbrs = knn(query, train_features, self.k_neighbors,
-                          engine=engine)
-        weights, _, _ = fuzzy_weights(dists)
         return nbrs, weights, embed_query(nbrs, weights, train_embeds)
 
     def invert_graph(self, query_embeds: torch.Tensor,
@@ -142,15 +158,10 @@ class ModalityEncoder:
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Latent-space (nbrs, weights) + data-space initialization. Under
         a mesh every table is this rank's rows."""
-        engine = resolve_engine(self.knn_engine, query_embeds.device)
-        if mesh is not None and mesh.size > 1:
-            dists, nbrs = _ring_knn(query_embeds, train_embeds,
-                                    self.k_neighbors, mesh,
-                                    exclude_self=False, engine=engine)
+        dists, nbrs = self._knn(query_embeds, train_embeds, mesh)
+        with prof.span("sigma"):
             weights = curve_weights(dists, a, b)
+        if mesh is not None and mesh.size > 1:
             return nbrs, weights, _ring_embed_query(nbrs, weights,
                                                     train_data, mesh)
-        dists, nbrs = knn(query_embeds, train_embeds, self.k_neighbors,
-                          engine=engine)
-        weights = curve_weights(dists, a, b)
         return nbrs, weights, embed_query(nbrs, weights, train_data)

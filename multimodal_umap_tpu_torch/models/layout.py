@@ -42,7 +42,12 @@ CUDA graph replayed once per epoch (:func:`_graph_chunk_runner`, the
 counterpart of the JAX package's compiled ``_chunk_runner``), and on
 the CPU as an eager loop (:func:`_eager_chunk_runner`); both read the
 epoch's draws from buffers allocated once per call
-(:class:`_EpochInputs`).
+(:class:`_EpochInputs`). Its steps are ``utils.prof`` spans of the
+caller's phase: ``prepare`` (Adam, the reverse index, the epoch's
+buffers), ``warmup`` and ``capture`` (the graph runner's) and
+``epochs``; under an active ``torch.profiler`` the epoch's
+:data:`EPOCH_SECTIONS` are timed too (``prof.Sections``: border events,
+in a captured epoch event-record nodes, none while no profiler runs).
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from ..ops import losses as L
 from ..ops.graph import DenseSymGraph
 from ..ops.layout_terms import _recompute
 from ..ops.scatter_free import random_permutation_pair
+from ..utils import prof
 
 
 class LayoutTask(typing.NamedTuple):
@@ -446,9 +452,11 @@ def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
                  remat_rows: int | None = None,
                  slot_bytes: int | None = None):
     """The total loss of one epoch:
-    ``loss(params, tasks, a, b, draws: EpochDraws, rolls=None) ->
-    scalar``, ``rolls`` the epoch's :func:`pack_rolls` as an int64
-    device vector (None: made from ``draws``' ints).
+    ``loss(params, tasks, a, b, draws: EpochDraws, rolls=None,
+    sections=None) -> scalar``, ``rolls`` the epoch's :func:`pack_rolls`
+    as an int64 device vector (None: made from ``draws``' ints),
+    ``sections`` a ``prof.Sections`` that marks InfoNCE's borders
+    (:data:`EPOCH_SECTIONS`; None: nothing is marked).
 
     Fit mode recomputes a modality's loss in the backward past
     ``remat_rows`` rows (default :data:`_MODALITY_REMAT_ROWS`) and scans
@@ -457,7 +465,8 @@ def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
     if mode not in _MODES:
         raise ValueError(f"invalid mode: {mode}")
 
-    def loss_fn(params, tasks, a, b, draws: EpochDraws, rolls=None):
+    def loss_fn(params, tasks, a, b, draws: EpochDraws, rolls=None,
+                sections: prof.Sections | None = None):
         if rolls is None:
             rolls = torch.tensor(pack_rolls(draws, statics, num_rep),
                                  dtype=torch.int64, device=params[0].device)
@@ -485,7 +494,10 @@ def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
         if mode == "fit" and len(statics) > 1 and alpha != 0.0:
             # Symmetric InfoNCE added to both modality buckets => 2*alpha
             # effective weight.
+            nce = (params if sections is None else
+                   sections.through(params, "infonce_fwd", "modality_bwd"))
             pair = iter(draws.infonce)
+            terms = []
             for i in range(len(statics)):
                 for j in range(i + 1, len(statics)):
                     d_ij, d_ji = next(pair)
@@ -493,15 +505,20 @@ def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
                                         pos + (c + 1) * (n_neg_infonce + 2)]
                                   for c in range(2))
                     pos += 2 * (n_neg_infonce + 2)
-                    l_ij = L.infonce(d_ij, params[i], params[j],
+                    l_ij = L.infonce(d_ij, nce[i], nce[j],
                                      n_neg=n_neg_infonce,
                                      temperature=infonce_temperature,
                                      rolls=r_ij)
-                    l_ji = L.infonce(d_ji, params[j], params[i],
+                    l_ji = L.infonce(d_ji, nce[j], nce[i],
                                      n_neg=n_neg_infonce,
                                      temperature=infonce_temperature,
                                      rolls=r_ji)
-                    total = total + alpha * (l_ij + l_ji)
+                    terms.append(alpha * (l_ij + l_ji))
+            _start(sections, "infonce_bwd")
+            for term in terms:
+                total = total + term
+        else:
+            _start(sections, "modality_bwd")
         return total
 
     return loss_fn
@@ -577,23 +594,48 @@ def _copy_draws(src: EpochDraws, bufs: EpochDraws | None = None
          for p, bp in zip(src.infonce, bufs.infonce)])
 
 
+# The sections of a layout epoch in the order they run (``prof.Sections``):
+# the device draws; the modality terms' forward (coefficients, K2 / K3);
+# InfoNCE's forward; from InfoNCE's output (the loss's last adds and the
+# backward's seed included) to the end of its backward; the rest of the
+# backward (the modality terms', K2 / K3's included); Adam. Without
+# InfoNCE the backward is all ``modality_bwd``.
+EPOCH_SECTIONS = ("draws", "modality_fwd", "infonce_fwd", "infonce_bwd",
+                  "modality_bwd", "adam")
+
+
+def _start(sections: prof.Sections | None, name: str) -> None:
+    if sections is not None:
+        sections.start(name)
+
+
 def _epoch_step(params, optimizer, loss_fn, tasks, a, b,
-                inputs: _EpochInputs) -> torch.Tensor:
+                inputs: _EpochInputs,
+                sections: prof.Sections | None = None) -> torch.Tensor:
     """One epoch on ``inputs``' buffers: device draws, loss, backward,
-    Adam update. Returns the (detached) loss."""
+    Adam update, each section marked in ``sections``. Returns the
+    (detached) loss."""
+    _start(sections, "draws")
     inputs.draw_device()
+    _start(sections, "modality_fwd")
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(params, tasks, a, b, inputs.draws, inputs.rolls)
+    loss = loss_fn(params, tasks, a, b, inputs.draws, inputs.rolls,
+                   sections=sections)
     loss.backward()
+    _start(sections, "adam")
     optimizer.step()
+    if sections is not None:
+        sections.stop()
     return loss.detach()
 
 
 @contextlib.contextmanager
 def _eager_chunk_runner(params, optimizer, loss_fn, tasks, a, b,
-                        inputs: _EpochInputs, first_epoch: int):
+                        inputs: _EpochInputs, first_epoch: int,
+                        sections: prof.Sections | None = None):
     """One eager step per epoch (the CPU's runner): yields
-    ``run_chunk(start, take) -> (take,) losses``."""
+    ``run_chunk(start, take) -> (take,) losses``; ``sections`` times
+    every epoch."""
     del first_epoch
 
     def run_chunk(start: int, take: int) -> torch.Tensor:
@@ -602,7 +644,7 @@ def _eager_chunk_runner(params, optimizer, loss_fn, tasks, a, b,
         for t in range(take):
             inputs.set_epoch(start + t)
             hist[t] = _epoch_step(params, optimizer, loss_fn, tasks, a, b,
-                                  inputs)
+                                  inputs, sections)
         return hist
 
     yield run_chunk
@@ -616,7 +658,8 @@ _WARMUP_EPOCHS = 2
 
 @contextlib.contextmanager
 def _graph_chunk_runner(params, optimizer, loss_fn, tasks, a, b,
-                        inputs: _EpochInputs, first_epoch: int):
+                        inputs: _EpochInputs, first_epoch: int,
+                        sections: prof.Sections | None = None):
     """The counterpart of the JAX package's ``_chunk_runner`` (a jitted
     ``lax.scan`` of epoch steps: one compiled device program): one epoch
     -- device draws, loss, backward, Adam update, the loss into a static
@@ -624,34 +667,41 @@ def _graph_chunk_runner(params, optimizer, loss_fn, tasks, a, b,
     replayed once per epoch after :meth:`_EpochInputs.set_epoch`. Yields
     ``run_chunk(start, take) -> (take,) losses`` with no host sync inside
     a chunk. The warm-up epochs are undone from host copies of the
-    parameters and Adam's state. A capture that fails raises; the graph
+    parameters and Adam's state. ``sections`` marks the captured epoch
+    (its borders become event-record nodes) and counts its replays; the
+    warm-up epochs are not marked. A capture that fails raises; the graph
     and its memory pool are released on exit."""
     device = params[0].device
-    if not optimizer.state:
-        _set_adam_state(optimizer, params, AdamState(
-            0, [torch.zeros_like(p) for p in params],
-            [torch.zeros_like(p) for p in params]))
+    with prof.span("prepare"):
+        if not optimizer.state:
+            _set_adam_state(optimizer, params, AdamState(
+                0, [torch.zeros_like(p) for p in params],
+                [torch.zeros_like(p) for p in params]))
     live = [*params, *(optimizer.state[p][k] for p in params
                        for k in ("step", "exp_avg", "exp_avg_sq"))]
-    saved = [t.detach().cpu() for t in live]
-    inputs.set_epoch(first_epoch)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        for _ in range(_WARMUP_EPOCHS):
-            _epoch_step(params, optimizer, loss_fn, tasks, a, b, inputs)
-    torch.cuda.current_stream(device).wait_stream(side)
-    with torch.no_grad():
-        for t, s in zip(live, saved):
-            t.copy_(s)
-    del saved
+    with prof.span("warmup"):
+        saved = [t.detach().cpu() for t in live]
+        inputs.set_epoch(first_epoch)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(_WARMUP_EPOCHS):
+                _epoch_step(params, optimizer, loss_fn, tasks, a, b, inputs)
+        torch.cuda.current_stream(device).wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(live, saved):
+                t.copy_(s)
+        del saved
+    if sections is not None:
+        sections.captured = True
     static_loss = torch.zeros((), device=device)
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(inputs.gen)
     try:
-        with torch.cuda.graph(graph):
+        # The span's own events are recorded outside the capture.
+        with prof.span("capture"), torch.cuda.graph(graph):
             static_loss.copy_(_epoch_step(params, optimizer, loss_fn, tasks,
-                                          a, b, inputs))
+                                          a, b, inputs, sections))
 
         def run_chunk(start: int, take: int) -> torch.Tensor:
             hist = torch.empty(take, dtype=torch.float32, device=device)
@@ -659,6 +709,8 @@ def _graph_chunk_runner(params, optimizer, loss_fn, tasks, a, b,
                 inputs.set_epoch(start + t)
                 graph.replay()
                 hist[t] = static_loss
+            if sections is not None:
+                sections.replays += take
             return hist
 
         yield run_chunk
@@ -726,49 +778,60 @@ def train_layout(
         # A snapshot already recorded the final epoch; the loaded params
         # come back untouched.
         return [p.detach() for p in params], torch.zeros(0)
-    optimizer = make_optimizer(params, lr)
-    if init_opt_state is not None:
-        _set_adam_state(optimizer, params, init_opt_state)
-    loss_fn = make_loss_fn(statics, mode=mode, num_rep=num_rep, alpha=alpha,
-                           batch_size=batch_size)
-    tasks = tuple(tasks)
-    if mode == "fit":
-        tasks = with_reverse_index(tasks, statics)
-    runner = None
-    if mesh is not None and mesh.size > 1:
-        from .layout_sharded import sharded_chunk_runner, sharded_compatible
+    with prof.span("prepare"):
+        optimizer = make_optimizer(params, lr)
+        if init_opt_state is not None:
+            _set_adam_state(optimizer, params, init_opt_state)
+        loss_fn = make_loss_fn(statics, mode=mode, num_rep=num_rep,
+                               alpha=alpha, batch_size=batch_size)
+        tasks = tuple(tasks)
+        if mode == "fit":
+            tasks = with_reverse_index(tasks, statics)
+        runner = None
+        sections = None
+        if mesh is not None and mesh.size > 1:
+            from .layout_sharded import (
+                sharded_chunk_runner,
+                sharded_compatible,
+            )
 
-        if sharded_compatible(params, tasks, statics, mesh):
-            ref_gather = "full"
-            thresh = float(os.environ.get("MMUMAP_REF_GATHER_BYTES", 1 << 30))
-            if mode != "fit" and any(
-                    t.ref is not None
-                    and t.ref.numel() * t.ref.element_size() * mesh.size
-                    > thresh for t in tasks):
-                ref_gather = "ring"
-            sharded = sharded_chunk_runner(
-                tuple(statics), mode, num_rep, alpha, batch_size, mesh,
-                ref_gather)
-            if draws is None:
-                def draws(epoch):
-                    return draw_epoch(epoch_rng(seed, epoch, device), tasks,
-                                      statics, mode=mode, num_rep=num_rep,
-                                      alpha=alpha)
-            runner = contextlib.nullcontext(
-                lambda start, take: sharded(params, optimizer, tasks, a, b,
-                                            draws, start, take))
-    if runner is None:
-        inputs = _EpochInputs(tasks, statics, mode=mode, num_rep=num_rep,
-                              alpha=alpha, seed=seed, device=device,
-                              draws=draws, first_epoch=start_epoch)
-        chunk_runner = (_graph_chunk_runner if device.type == "cuda"
-                        else _eager_chunk_runner)
-        runner = chunk_runner(params, optimizer, loss_fn, tasks, a, b,
-                              inputs, start_epoch)
+            if sharded_compatible(params, tasks, statics, mesh):
+                ref_gather = "full"
+                thresh = float(os.environ.get("MMUMAP_REF_GATHER_BYTES",
+                                              1 << 30))
+                if mode != "fit" and any(
+                        t.ref is not None
+                        and t.ref.numel() * t.ref.element_size() * mesh.size
+                        > thresh for t in tasks):
+                    ref_gather = "ring"
+                sharded = sharded_chunk_runner(
+                    tuple(statics), mode, num_rep, alpha, batch_size, mesh,
+                    ref_gather)
+                if draws is None:
+                    def draws(epoch):
+                        return draw_epoch(epoch_rng(seed, epoch, device),
+                                          tasks, statics, mode=mode,
+                                          num_rep=num_rep, alpha=alpha)
+                sections = prof.traced_sections(device)
+                runner = contextlib.nullcontext(
+                    lambda start, take: sharded(params, optimizer, tasks, a,
+                                                b, draws, start, take,
+                                                sections))
+        if runner is None:
+            inputs = _EpochInputs(tasks, statics, mode=mode, num_rep=num_rep,
+                                  alpha=alpha, seed=seed, device=device,
+                                  draws=draws, first_epoch=start_epoch)
+            sections = prof.traced_sections(device)
+            chunk_runner = (_graph_chunk_runner if device.type == "cuda"
+                            else _eager_chunk_runner)
+            runner = chunk_runner(params, optimizer, loss_fn, tasks, a, b,
+                                  inputs, start_epoch, sections)
 
     history = []
     done = start_epoch
-    with runner as run_chunk:
+    with runner as run_chunk, prof.span("epochs"):
+        if sections is not None:
+            prof.defer(sections.seconds)
         while done < epochs:
             take = min(epoch_chunk, epochs - done)
             hist = run_chunk(done, take)

@@ -43,6 +43,7 @@ from ..parallel.collectives import (
     psum,
     ring_pass,
 )
+from ..utils import prof
 from .layout import (
     EpochDraws,
     FitDraws,
@@ -50,6 +51,7 @@ from .layout import (
     QueryDraws,
     TaskStatic,
     _inv_window_coef,
+    _start,
     _window_means_from_rows,
     pack_rolls,
 )
@@ -201,7 +203,8 @@ def _make_local_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
     modality i through the ring engine."""
     p = mesh.size
 
-    def loss_fn(params, tasks, y_attrs, a, b, draws: EpochDraws):
+    def loss_fn(params, tasks, y_attrs, a, b, draws: EpochDraws,
+                sections: prof.Sections | None = None):
         total = params[0].new_zeros(())
         kw = dict(a=a, b=b, num_rep=num_rep, batch_size=batch_size,
                   mesh=mesh)
@@ -217,17 +220,24 @@ def _make_local_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
             if len(statics) > 1 and alpha != 0.0:
                 # On the gathered tables, the same on every rank: 1/P
                 # makes the sum over ranks count loss and gradient once.
+                nce = (fulls if sections is None else sections.through(
+                    fulls, "infonce_fwd", "modality_bwd"))
                 pair = iter(draws.infonce)
+                terms = []
                 for i in range(len(statics)):
                     for j in range(i + 1, len(statics)):
                         d_ij, d_ji = next(pair)
-                        l_ij = L.infonce(d_ij, fulls[i], fulls[j],
+                        l_ij = L.infonce(d_ij, nce[i], nce[j],
                                          n_neg=n_neg_infonce,
                                          temperature=infonce_temperature)
-                        l_ji = L.infonce(d_ji, fulls[j], fulls[i],
+                        l_ji = L.infonce(d_ji, nce[j], nce[i],
                                          n_neg=n_neg_infonce,
                                          temperature=infonce_temperature)
-                        total = total + alpha * (l_ij + l_ji) / p
+                        terms.append(alpha * (l_ij + l_ji) / p)
+                _start(sections, "infonce_bwd")
+                for term in terms:
+                    total = total + term
+                return total
         else:
             for i, static in enumerate(statics):
                 if y_attrs is not None and y_attrs[i] is not None:
@@ -238,6 +248,7 @@ def _make_local_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
                     total = total + _query_modality_loss_local(
                         params[i], tasks[i], static, draws.modality[i],
                         mode=mode, **kw)
+        _start(sections, "modality_bwd")
         return total
 
     return loss_fn
@@ -275,7 +286,9 @@ def sharded_chunk_runner(statics: tuple, mode: str, num_rep: int,
     frozen reference tables once per chunk (O(N * D) per rank); "ring"
     keeps them sharded and fetches rows by ring passes (O(N/P) per
     rank). Fit tasks on the card carry their rank's reverse index
-    (``layout.with_reverse_index``, which ``train_layout`` applies)."""
+    (``layout.with_reverse_index``, which ``train_layout`` applies).
+    ``sections`` (``prof.Sections``) times every epoch's
+    ``layout.EPOCH_SECTIONS``, the draws the full-shape ones."""
     if ref_gather not in ("full", "ring"):
         raise ValueError(f"ref_gather must be full|ring, got {ref_gather!r}")
     loss_fn = _make_local_loss_fn(statics, mode=mode, num_rep=num_rep,
@@ -283,7 +296,8 @@ def sharded_chunk_runner(statics: tuple, mode: str, num_rep: int,
                                   mesh=mesh)
 
     def run_chunk(params, optimizer, tasks, a, b, draws, start: int,
-                  take: int) -> torch.Tensor:
+                  take: int,
+                  sections: prof.Sections | None = None) -> torch.Tensor:
         y_attrs = None
         if mode != "fit":
             with torch.no_grad():
@@ -297,12 +311,17 @@ def sharded_chunk_runner(statics: tuple, mode: str, num_rep: int,
                            device=params[0].device)
         n_local = params[0].shape[0]
         for t in range(take):
+            _start(sections, "draws")
             local = _local_draws(draws(start + t), mesh.rank * n_local,
                                  n_local, mode)
+            _start(sections, "modality_fwd")
             optimizer.zero_grad(set_to_none=True)
-            loss = loss_fn(params, tasks, y_attrs, a, b, local)
+            loss = loss_fn(params, tasks, y_attrs, a, b, local, sections)
             loss.backward()
+            _start(sections, "adam")
             optimizer.step()
+            if sections is not None:
+                sections.stop()
             hist[t] = loss.detach()
         return psum(hist, mesh)
 

@@ -1,0 +1,17 @@
+"""Milliseconds a layout epoch spends in Adam's update: the traced fit's
+section ``fit/layout/epochs/adam``, its seconds over all epochs
+(``models/layout.py``'s ``EPOCH_SECTIONS``, timed from border events that
+the captured epoch holds while a profiler runs), over the fit's
+epochs."""
+
+UNIT = "ms"
+SECTIONS = ("adam",)
+
+
+def read(view):
+    traced = [f for f in view.fits if f.traced]
+    names = [f"fit/layout/epochs/{s}" for s in SECTIONS]
+    if not traced or not all(n in traced[0].phases for n in names):
+        return None
+    epochs = view.cell.config["program"]["train_epochs"]
+    return 1e3 * sum(traced[0].phases[n] for n in names) / epochs

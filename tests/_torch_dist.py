@@ -15,6 +15,7 @@ interpreters never load JAX.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import multiprocessing
 import os
@@ -559,4 +560,24 @@ def graph_cache_rank(mesh, x0, x1, cache, kw):
                     "embeds": [_np(all_gather_tensor(e, mesh))
                                for e in model.embeds],
                     "sigmas": _np(model.encoders[0].sigmas)})
+    return out
+
+
+def profiled_fit_rank(mesh, x0, x1, kw):
+    """A mesh fit without and then under an active ``torch.profiler``:
+    each time the rank's embeddings, loss history and timer names."""
+    from multimodal_umap_tpu_torch.models.mixture import MultimodalUMAP
+
+    out = []
+    for profiled in (False, True):
+        model = MultimodalUMAP(8, 4, 0.1, 2, device="cpu", mesh=mesh)
+        ctx = (torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU])
+            if profiled else contextlib.nullcontext())
+        with ctx:
+            model.fit([x0, x1], **kw)
+        out.append({"phases": sorted(model.timer.phases),
+                    "sharded": model.sharded,
+                    "embeds": [_np(e) for e in model.embeds],
+                    "hist": model.loss_history["fit"]})
     return out
