@@ -199,7 +199,22 @@ line:
     both mesh paths (host launches: a captured epoch's replays run the
     captured kernels again; a backward's count is its calls, and its
     ``passes`` give each of its kernels' own launches and device ms);
-16. last line -- ``{"ok": true, "device": {...}}``.
+16. infonce -- the fit layout's InfoNCE kernels (``csrc/infonce.cu``:
+    a forward kernel a direction, the finishing kernel, one backward
+    kernel for the pair) at both benchmark cells' shapes (31,783 and
+    118,287 x 64), the main path's (31,744) and the scale path's
+    (524,288), n_neg = 8, group_size = 1,000: one pair forward and
+    backward against the plain version (autodiff, ``ops/losses.py``):
+    each loss within rtol 1e-5, each gradient within 1e-4 of its largest
+    entry, two kernel runs bit-equal; the forward's and forward +
+    backward's device ms and each kernel's own ms (both directions'
+    forwards, the finishing kernel, the backward: each captured alone in
+    a CUDA graph and replayed), the plain version's ms, and the bound
+    (bytes at 3.35 TB/s: each table, id vector and gradient once;
+    ``gather_bound_ms`` counts every row the kernels gather); the
+    kernels' launches on every path that fits (fit_eval, cli, scale,
+    mesh_nccl, mesh_gloo), each of which must launch both counted ones;
+17. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -319,9 +334,11 @@ TERM_COUNTS = (*TERM_KERNELS, *(k for ks in TERM_PASSES.values() for k in ks))
 
 def reset_counts(KT) -> None:
     """Sets every kernel's launch count to 0 (the tile kernel's, the norm
-    pre-pass's and the layout terms')."""
+    pre-pass's, the layout terms' and InfoNCE's)."""
     from multimodal_umap_tpu_torch.ops import layout_terms as LT
+    from multimodal_umap_tpu_torch.ops import losses as L
 
+    L.INFONCE_FWD_LAUNCHES = L.INFONCE_BWD_LAUNCHES = 0
     KT.KNN_TILE_BF16_LAUNCHES = KT.KNN_TILE_F32_LAUNCHES = 0
     KT.ROW_NORM_LAUNCHES = 0
     for counter in TERM_KERNELS.values():
@@ -446,6 +463,143 @@ def profiled_term_ms(fn, reps: int) -> dict:
                            == torch.autograd.DeviceType.CUDA], reps)
 
 
+# The InfoNCE kernels' shapes: each benchmark cell's rows, the main
+# path's and the scale path's, at the fit's out_dim, n_neg, group_size and
+# temperature.
+INFONCE_SHAPES = (("flickr30k", 31_783), ("coco2017", 118_287),
+                  ("main", N_TRAIN), ("scale", N_SCALE))
+INFONCE_D, INFONCE_NEG, INFONCE_GROUP, INFONCE_T = 64, 8, 1000, 0.5
+
+
+def infonce_launches() -> dict:
+    """The InfoNCE kernels' launches in this process (ops/losses.py)."""
+    from multimodal_umap_tpu_torch.ops import losses as L
+
+    return {"infonce_fwd": L.INFONCE_FWD_LAUNCHES,
+            "infonce_bwd": L.INFONCE_BWD_LAUNCHES}
+
+
+def infonce_bytes(num: int, d: int, n_neg: int) -> dict:
+    """A pair's bytes, forward and backward. ``compulsory``: each table,
+    id vector and roll vector read once, the losses and both gradients
+    written once. ``gathered``: what the kernels move -- a slot's anchor
+    and n_neg + 2 partner rows read, its coefficients and anchor gradient
+    written; an output row read with its saved anchor gradient and the
+    other direction's n_neg + 2 anchor rows and coefficients, and its
+    gradient written."""
+    table, ids, ncols = 4.0 * num * d, 8.0 * num, n_neg + 2
+    fwd = 2 * table + 2 * ids + 2 * 8.0 * ncols + 8.0
+    bwd = 4 * table + 2 * ids + 2 * 8.0 * ncols
+    row = 4.0 * d
+    g_fwd = 2 * num * ((1 + ncols) * row + 8.0 * (ncols - 1) + 4.0 * ncols
+                       + row)
+    g_bwd = 2 * num * ((3 + ncols) * row + 8.0 + 4.0 * ncols)
+    return {"compulsory": fwd + bwd, "gathered": g_fwd + g_bwd}
+
+
+def infonce_kernel_ms(e, dr, rolls, stream) -> dict:
+    """Each InfoNCE kernel's device ms a pair, launched alone (each
+    captured 20 times in a CUDA graph and replayed, :func:`graph_ms`):
+    both directions' forward kernels, the finishing kernel on their
+    partials and the backward kernel on their saved buffers."""
+    from multimodal_umap_tpu_torch.ops import losses as L
+
+    num, ncols = e[0].shape[0], INFONCE_NEG + 2
+
+    def forwards():
+        return [L._fwd_launch(a, b, d.q, r, num, ncols, INFONCE_T,
+                              INFONCE_GROUP)
+                for a, b, d, r in ((e[0], e[1], dr[0], rolls[0]),
+                                   (e[1], e[0], dr[1], rolls[1]))]
+
+    (c0, ga0, p0), (c1, ga1, p1) = forwards()
+    g = torch.ones((), device=e[0].device)
+    dirs = ((dr[0].q_inv, rolls[0], c0, ga0, g),
+            (dr[1].q_inv, rolls[1], c1, ga1, g))
+    return {"infonce_fwd_kernel": graph_ms(forwards, 20, stream),
+            "infonce_finish_kernel": graph_ms(
+                lambda: L._finish_launch((p0, p1), num, INFONCE_GROUP), 20,
+                stream),
+            "infonce_bwd_kernel": graph_ms(
+                lambda: L._bwd_launch(e, dirs, num, ncols, INFONCE_GROUP),
+                20, stream)}
+
+
+def infonce_phase(dev) -> dict:
+    """Phase 16 (see the module docstring)."""
+    from multimodal_umap_tpu_torch.ops import losses as L
+
+    out = {"phase": "infonce",
+           "source": "multimodal_umap_tpu_torch/csrc/infonce.cu",
+           "replaces": "none: XLA-fused on the TPU "
+                       "(multimodal_umap_tpu/ops/losses.py infonce)",
+           "library": "none (no one call)",
+           "tolerance": {"loss_rtol": 1e-5, "grad_rtol_of_max": 1e-4}}
+    stream = torch.cuda.Stream()
+    for name, num in INFONCE_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(num)
+        host = torch.Generator().manual_seed(num)
+        e = [torch.randn(num, INFONCE_D, generator=gen, device=dev)
+             for _ in range(2)]
+        dr = [L.draw_infonce(num, INFONCE_NEG, INFONCE_GROUP, gen, host, dev)
+              for _ in range(2)]
+        rolls = tuple(torch.tensor(L.infonce_rolls(x), device=dev)
+                      for x in dr)
+        leaves = [x.clone().requires_grad_(True) for x in e]
+
+        def kernels(a, b):
+            return L.infonce_pair(dr[0], dr[1], a, b, n_neg=INFONCE_NEG,
+                                  temperature=INFONCE_T,
+                                  group_size=INFONCE_GROUP, rolls=rolls)
+
+        def plain(a, b):
+            kw = dict(n_neg=INFONCE_NEG, temperature=INFONCE_T,
+                      group_size=INFONCE_GROUP)
+            return (L.infonce(dr[0], a, b, rolls=rolls[0], **kw),
+                    L.infonce(dr[1], b, a, rolls=rolls[1], **kw))
+
+        def step(fn):
+            for x in leaves:
+                x.grad = None
+            losses = fn(*leaves)
+            torch.autograd.backward(losses)
+            return [x.detach() for x in losses] + [x.grad for x in leaves]
+
+        got, again, want = step(kernels), step(kernels), step(plain)
+        torch.cuda.synchronize()
+        loss_err = max(abs(float(g) - float(w)) / abs(float(w))
+                       for g, w in zip(got[:2], want[:2]))
+        grad_err = max(float((g - w).abs().max() / w.abs().max())
+                       for g, w in zip(got[2:], want[2:]))
+
+        def forward():
+            with torch.no_grad():
+                kernels(*leaves)
+
+        nbytes = infonce_bytes(num, INFONCE_D, INFONCE_NEG)
+        fwd_ms = graph_ms(forward, 20, stream)
+        total_ms = graph_ms(lambda: step(kernels), 20, stream)
+        own = infonce_kernel_ms(e, dr, rolls, stream)
+        bound = nbytes["compulsory"] / H100_BYTES_PER_S * 1e3
+        out[name] = {
+            "shape": {"rows": num, "D": INFONCE_D, "n_neg": INFONCE_NEG,
+                      "group_size": INFONCE_GROUP},
+            "loss_rel_err": loss_err, "grad_err_of_max": grad_err,
+            "bit_equal_twice": all(torch.equal(x, y)
+                                   for x, y in zip(got, again)),
+            "fwd_ms": fwd_ms, "ms": total_ms, "bwd_ms": total_ms - fwd_ms,
+            "kernel_ms": own, "kernel_sum_ms": sum(own.values()),
+            "plain_ms": graph_ms(lambda: step(plain), 5, stream),
+            "bound_ms": bound, "bound_by": "bytes",
+            "gather_bound_ms": nbytes["gathered"] / H100_BYTES_PER_S * 1e3,
+            "roofline_pct": 100.0 * bound / total_ms}
+        out[name]["ok"] = (loss_err <= 1e-5 and grad_err <= 1e-4
+                           and out[name]["bit_equal_twice"])
+        del e, leaves, got, again, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def bound_ms(nq, n, d, tile_k, bf16=True):
     """The tile kernel's bound: operations at the mode's peak (bf16 tensor
     cores, or the f32 mode's three TF32 passes) against the bytes: both
@@ -466,7 +620,9 @@ KERNEL_FUNCTIONS = ("knn_tile_bf16_kernel", "knn_tile_f32_kernel",
                     "rownorm_bf16_kernel", "fit_attr_fwd_kernel",
                     "fit_attr_bwd_weights_kernel", "fit_attr_bwd_kernel",
                     "fit_attr_bwd_finish_kernel", "fit_rep_fwd_kernel",
-                    "fit_rep_bwd_weights_kernel", "fit_rep_bwd_kernel")
+                    "fit_rep_bwd_weights_kernel", "fit_rep_bwd_kernel",
+                    "infonce_fwd_kernel", "infonce_finish_kernel",
+                    "infonce_bwd_kernel")
 
 
 def ptxas_report(log: str) -> dict:
@@ -1009,7 +1165,8 @@ def cli_path(dev, out_dir):
     seconds = time.perf_counter() - t0
     launches = {"knn_tile_bf16": KT.KNN_TILE_BF16_LAUNCHES,
                 "knn_tile_f32": KT.KNN_TILE_F32_LAUNCHES,
-                "knn_rownorm": KT.ROW_NORM_LAUNCHES, **term_launches()}
+                "knn_rownorm": KT.ROW_NORM_LAUNCHES, **term_launches(),
+                **infonce_launches()}
     peak_run = torch.cuda.max_memory_allocated() - base
 
     tables = sum(d.numel() * d.element_size() for d in model.data)
@@ -1412,6 +1569,7 @@ def main() -> None:
     phases["train"] = time.perf_counter() - t0
     launches["after_fit"] = tile_launches(KT)
     main_term_launches = term_launches()
+    main_nce = infonce_launches()
     t0 = time.perf_counter()
     cosine = similarity_test(test_np, cfg, model, return_values=True,
                              quiet=True)
@@ -1549,13 +1707,15 @@ def main() -> None:
     sline, scale_census = ladder.run_rung(N_SCALE, dev)
     scale_launches = {"knn_tile_bf16": KT.KNN_TILE_BF16_LAUNCHES,
                       "knn_tile_f32": KT.KNN_TILE_F32_LAUNCHES,
-                      "knn_rownorm": KT.ROW_NORM_LAUNCHES, **term_launches()}
+                      "knn_rownorm": KT.ROW_NORM_LAUNCHES, **term_launches(),
+                      **infonce_launches()}
     scale_fails = ladder.failures(sline)
     sline.update(cut="none", launches=scale_launches, failures=scale_fails)
     emit(sline)
     check(not scale_fails, "scale path: " + "; ".join(scale_fails))
     check(all(scale_launches[k] > 0 for k in ("knn_tile_bf16", "knn_rownorm",
-                                               *TERM_KERNELS)),
+                                               *TERM_KERNELS,
+                                               *infonce_launches())),
           f"scale path left a kernel unlaunched: {scale_launches}")
 
     # 12. the mesh path: NCCL at world size 1 in process, then two gloo
@@ -1580,6 +1740,10 @@ def main() -> None:
     check(all(part[k] > 0 for part in mesh_terms.values()
               for k in TERM_KERNELS),
           f"mesh path left a layout-term kernel unlaunched: {mesh_terms}")
+    mesh_nce = {part: mesh_launches[f"{part}_infonce"]
+                for part in ("nccl_world1", "gloo_two_ranks")}
+    check(all(v > 0 for part in mesh_nce.values() for v in part.values()),
+          f"mesh path left an InfoNCE kernel unlaunched: {mesh_nce}")
 
     # 13. the fit layout's term kernels against their plain versions at
     # the main path's first layout call, a rank's row range of it and the
@@ -1822,6 +1986,21 @@ def main() -> None:
         "fit_eval": main_term_launches, "cli": cli_launches,
         "scale": scale_launches, "mesh_nccl": mesh_terms["nccl_world1"],
         "mesh_gloo": mesh_terms["gloo_two_ranks"]})]}), flush=True)
+    # 16. the InfoNCE kernels at both benchmark cells' shapes
+    nline = infonce_phase(dev)
+    nce_by_path = {
+        "fit_eval": main_nce,
+        **{p: {k: c[k] for k in main_nce}
+           for p, c in (("cli", cli_launches), ("scale", scale_launches))},
+        "mesh_nccl": mesh_nce["nccl_world1"],
+        "mesh_gloo": mesh_nce["gloo_two_ranks"]}
+    nline["launches_by_path"] = nce_by_path
+    emit(nline)
+    check(all(v > 0 for path in nce_by_path.values() for v in path.values()),
+          f"a path that fits left an InfoNCE kernel unlaunched: {nce_by_path}")
+    check(all(nline[name]["ok"] for name, _ in INFONCE_SHAPES),
+          "InfoNCE kernels disagree with plain or are not bit-reproducible")
+
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

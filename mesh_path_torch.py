@@ -257,6 +257,7 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
         _sync()
         t_mesh = time.perf_counter() - t0
         line["layout_term_launches"] = CS.term_launches()
+        line["infonce_launches"] = CS.infonce_launches()
 
         def excess(xs, ys, rtol, atol):
             return max(float(((x.detach() - y).abs() - rtol * y.abs()
@@ -437,7 +438,8 @@ def _rank_body(rank: int, world: int, store: str, out: str, device: str,
         KT.knn_tile = wrapper
     launches = {"knn_tile_bf16": KT.KNN_TILE_BF16_LAUNCHES,
                 "knn_tile_f32": KT.KNN_TILE_F32_LAUNCHES,
-                "knn_rownorm": KT.ROW_NORM_LAUNCHES, **CS.term_launches()}
+                "knn_rownorm": KT.ROW_NORM_LAUNCHES, **CS.term_launches(),
+                **CS.infonce_launches()}
     by_shape = {}
     for kind, shape, nbytes in train_ops:
         entry = by_shape.setdefault(f"{kind} {shape}", [0, 0])
@@ -578,7 +580,8 @@ def gloo_two_ranks(out_dir, device: str = "cuda:0",
 
 def run(train_np, test_np, dev, out_dir, main_cosine: float | None):
     """Both parts: (the phase's JSON line, failures, launches by part:
-    the tile kernel's, and the layout-term kernels' of each part)."""
+    the tile kernel's, and the layout-term and InfoNCE kernels' of each
+    part)."""
     import chip_smoke as CS
 
     os.makedirs(out_dir, exist_ok=True)
@@ -601,7 +604,12 @@ def run(train_np, test_np, dev, out_dir, main_cosine: float | None):
                 "nccl_world1_layout_terms": a_line.get(
                     "layout_term_launches", dict.fromkeys(CS.TERM_COUNTS, 0)),
                 "gloo_two_ranks_layout_terms": {
-                    k: b_launches.get(k, 0) for k in CS.TERM_COUNTS}}
+                    k: b_launches.get(k, 0) for k in CS.TERM_COUNTS},
+                "nccl_world1_infonce": a_line.get(
+                    "infonce_launches",
+                    dict.fromkeys(CS.infonce_launches(), 0)),
+                "gloo_two_ranks_infonce": {
+                    k: b_launches.get(k, 0) for k in CS.infonce_launches()}}
     return line, fails, launches
 
 

@@ -11,7 +11,8 @@ the fused epoch engine). Semantics:
   * entries are grouped into row windows of ``batch_size``; a
     modality's loss is the mean over windows of per-window means;
   * in fit mode the symmetric InfoNCE loss is added with effective
-    weight 2*alpha;
+    weight 2*alpha (``losses.infonce_pair``: on the card a forward kernel
+    a direction and one backward kernel for the pair's two tables);
   * Adam takes ONE full-batch step per epoch on the summed loss.
 
 The fit graph lives in its forward (N, k) layout: transposed copies are
@@ -505,14 +506,9 @@ def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
                                         pos + (c + 1) * (n_neg_infonce + 2)]
                                   for c in range(2))
                     pos += 2 * (n_neg_infonce + 2)
-                    l_ij = L.infonce(d_ij, nce[i], nce[j],
-                                     n_neg=n_neg_infonce,
-                                     temperature=infonce_temperature,
-                                     rolls=r_ij)
-                    l_ji = L.infonce(d_ji, nce[j], nce[i],
-                                     n_neg=n_neg_infonce,
-                                     temperature=infonce_temperature,
-                                     rolls=r_ji)
+                    l_ij, l_ji = L.infonce_pair(
+                        d_ij, d_ji, nce[i], nce[j], n_neg=n_neg_infonce,
+                        temperature=infonce_temperature, rolls=(r_ij, r_ji))
                     terms.append(alpha * (l_ij + l_ji))
             _start(sections, "infonce_bwd")
             for term in terms:

@@ -227,12 +227,9 @@ def _make_local_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
                 for i in range(len(statics)):
                     for j in range(i + 1, len(statics)):
                         d_ij, d_ji = next(pair)
-                        l_ij = L.infonce(d_ij, nce[i], nce[j],
-                                         n_neg=n_neg_infonce,
-                                         temperature=infonce_temperature)
-                        l_ji = L.infonce(d_ji, nce[j], nce[i],
-                                         n_neg=n_neg_infonce,
-                                         temperature=infonce_temperature)
+                        l_ij, l_ji = L.infonce_pair(
+                            d_ij, d_ji, nce[i], nce[j], n_neg=n_neg_infonce,
+                            temperature=infonce_temperature)
                         terms.append(alpha * (l_ij + l_ji) / p)
                 _start(sections, "infonce_bwd")
                 for term in terms:

@@ -63,8 +63,10 @@ COL_BLOCK = 32768
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # One nvcc call builds every kernel of the port into one library: the kNN
-# tile kernel's and the layout terms' (ops/layout_terms.py binds those).
-_SOURCES = (_CSRC / "knn_tile.cu", _CSRC / "layout_terms.cu")
+# tile kernel's, the layout terms' (ops/layout_terms.py binds those) and
+# InfoNCE's (ops/losses.py).
+_SOURCES = (_CSRC / "knn_tile.cu", _CSRC / "layout_terms.cu",
+            _CSRC / "infonce.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 # Launches of the CUDA tile kernel in this process, one count per mode
@@ -131,9 +133,10 @@ def _nvcc_cmd(cuda_home: str, out: Path) -> list[str]:
 
 
 def build() -> ctypes.CDLL:
-    """Compiles ``csrc/knn_tile.cu`` and ``csrc/layout_terms.cu`` in one
-    ``nvcc`` call (once per source content and nvcc command) and returns
-    the library with the tile kernel's entry points bound."""
+    """Compiles ``csrc/knn_tile.cu``, ``csrc/layout_terms.cu`` and
+    ``csrc/infonce.cu`` in one ``nvcc`` call (once per source content and
+    nvcc command) and returns the library with the tile kernel's entry
+    points bound."""
     global _lib, BUILD_SECONDS, BUILD_LOG, SO_PATH
     if _lib is not None:
         return _lib
