@@ -36,9 +36,13 @@
 //   * the product is q . r^T with both operands K-major in shared
 //     memory: `wgmma.mma_async m64n256k16` bf16 -> f32, 4 per stage per
 //     consumer warpgroup, 128 accumulators a thread; one wgmma group
-//     stays in flight while the previous stage is released. setmaxnreg
-//     gives the consumers 232 registers and the producer 40 for the main
-//     loop, then 168 to all 12 warps for the selection;
+//     stays in flight while the previous stage is released. Every warp
+//     keeps the launch's 168 registers, which hold the main loop's
+//     accumulators without a spill. No `setmaxnreg`: a warp's
+//     `setmaxnreg.inc` waits until registers come free, and with other
+//     processes time-sliced on the card the kernel hung (every run of
+//     three processes on one H100 hung in its first kNN, and a lone run
+//     now and then);
 //   * epilogue: the 128 x 256 panel goes to shared memory (aliasing the
 //     ring, which is dead by then) and all 12 warps select, one warp per
 //     row (8 columns a lane), two rows at a time, with a threshold search
@@ -77,8 +81,8 @@
 //     a ring of 5 stages full with TMA loads of raw f32 slices (16 wide:
 //     64-byte rows, 64-byte swizzle, zero fill past Q and N; D is padded
 //     to 16 by the wrapper). full (TMA), ready (split) and empty
-//     (consumed) mbarriers pace the ring; setmaxnreg gives the consumers
-//     232 registers and the producer 40, then 168 to all for selection;
+//     (consumed) mbarriers pace the ring; every warp keeps the launch's
+//     registers, as in bf16 mode;
 //   * the split is done in the kernel, by the 256 consumer threads while
 //     the tensor cores run the previous stage: hi = tf32_rna(x) in place
 //     and lo = tf32_rna(x - hi) in a second buffer of the same layout
@@ -142,8 +146,6 @@ constexpr int GROUP_M = 16;  // row tiles per raster group
 constexpr int BM = 128;                     // rows per block
 constexpr int BK = 64;                      // D slice: 128 bytes of bf16
 constexpr int STAGES = 4;
-constexpr int CONSUMER_REGS = 232;  // main loop: 128 accumulators a thread
-constexpr int SEL_REGS = 168;       // selection: every warp alike
 constexpr int Q_STAGE_BYTES = BM * BK * 2;      // 16 KB
 constexpr int R_STAGE_BYTES = TILE_C * BK * 2;  // 32 KB
 constexpr int STAGE_BYTES = Q_STAGE_BYTES + R_STAGE_BYTES;
@@ -533,11 +535,10 @@ knn_tile_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   float* rn = reinterpret_cast<float*>(smem + RN_OFF);
   uint64_t* scr = reinterpret_cast<uint64_t*>(smem + BF_SCR_OFF) +
                   warp * SEL_ROWS * TILE_C;
-  // Each role runs to the end in its own branch (setmaxnreg needs it); the
-  // selection is the same code in both.
+  // Each role runs to the end in its own branch; the selection is the same
+  // code in both.
   if (wg == 2) {
     // ---- producer warpgroup: one thread issues the TMA loads ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 256) {
       int stage = 0;
       uint32_t phase = 0;
@@ -554,14 +555,11 @@ knn_tile_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
     }
-    // Take the registers the consumers give back, then select with them.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(SEL_REGS));
     asm volatile("bar.sync 2, %0;\n" ::"n"(THREADS) : "memory");
     select_rows(panel, qn, rn, BM, warp, SEL_WARPS, scr, row0, col0, ct, Q, N,
                 tile_k, row_offset, exclude_self, d_out, i_out);
   } else {
     // ---- consumer warpgroups: rows wg*64 .. wg*64+63 of the tile ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     float acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.f;
@@ -607,7 +605,6 @@ knn_tile_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int ctid = threadIdx.x;  // 0..255
     if (ctid < BM) qn[ctid] = row0 + ctid < Q ? q_sq[row0 + ctid] : 0.f;
     rn[ctid] = col0 + ctid < N ? r_sq[col0 + ctid] : 0.f;
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(SEL_REGS));
     asm volatile("bar.sync 2, %0;\n" ::"n"(THREADS) : "memory");
     select_rows(panel, qn, rn, BM, warp, SEL_WARPS, scr, row0, col0, ct, Q, N,
                 tile_k, row_offset, exclude_self, d_out, i_out);
@@ -695,7 +692,6 @@ knn_tile_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 2) {
     // ---- producer warpgroup: one thread keeps the ring of raw f32
     // slices full ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 256) {
       int stage = 0;
       uint32_t phase = 0;
@@ -712,7 +708,6 @@ knn_tile_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
     }
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(SEL_REGS));
     asm volatile("bar.sync 2, %0;\n" ::"n"(THREADS) : "memory");
     select_rows(panel, qn, rn, FM, warp, SEL_WARPS, scr, row0, col0, ct, Q, N,
                 tile_k, row_offset, exclude_self, d_out, i_out);
@@ -724,7 +719,6 @@ knn_tile_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
     // their error would pass 1e-5 of the cancelled terms); the partial is
     // then added, rounding to nearest, into the total. The small terms go
     // first.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int t = threadIdx.x;  // 0..255
     float nrm[F_SPLIT_CHUNKS];
     float part[64], tot[64];
@@ -798,7 +792,6 @@ knn_tile_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
             make_float2(tot[4 * j + 2], tot[4 * j + 3]);
       }
     }
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(SEL_REGS));
     asm volatile("bar.sync 2, %0;\n" ::"n"(THREADS) : "memory");
     select_rows(panel, qn, rn, FM, warp, SEL_WARPS, scr, row0, col0, ct, Q, N,
                 tile_k, row_offset, exclude_self, d_out, i_out);

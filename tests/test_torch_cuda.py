@@ -1,5 +1,6 @@
 """PyTorch port on the card: the CUDA kNN tile kernel against its plain
-version. Imports no JAX, so on a GPU machine without JAX it runs as
+version, and a captured three-modality layout epoch against the eager
+one. Imports no JAX, so on a GPU machine without JAX it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -258,3 +259,38 @@ def test_bf16_table_already_on_the_card_is_not_copied():
     table = torch.randn(4_096, 768, device="cuda").bfloat16()
     assert model.device == table.device
     assert model._as_table(table).data_ptr() == table.data_ptr()
+
+
+@pytest.mark.cuda
+def test_captured_three_modality_epoch_matches_eager():
+    """A three-modality fit layout, three InfoNCE pairs an epoch, captured
+    as one CUDA graph against the eager runner at 2,048 rows, with the
+    tolerances of ``tests/test_torch_layout_graph.py``; every epoch step
+    (the warm-up's and the captured one) launches six InfoNCE forward
+    kernels and three backward ones."""
+    _require_cuda()
+    from layout_graph_torch import eager_runner
+    from test_torch_layout_graph import KW, _assert_close_runs, _fit_graph
+
+    from multimodal_umap_tpu_torch.models import layout as PL
+    from multimodal_umap_tpu_torch.ops import losses as L
+    from multimodal_umap_tpu_torch.ops.graph import DenseSymGraph
+
+    n = 2048
+    gen = torch.Generator().manual_seed(7)
+    dense = [_fit_graph(n, 6, 7 + m) for m in range(3)]
+    tasks, statics = zip(*(PL.fit_task(DenseSymGraph(
+        d.nbrs.cuda(), d.weights.cuda(), d.bwd_valid.cuda(), n), 32)
+        for d in dense))
+    inits = [torch.randn(n, 4, generator=gen).cuda() for _ in range(3)]
+    kw = dict(KW, alpha=0.5, mode="fit", epochs=40)
+    before = (L.INFONCE_FWD_LAUNCHES, L.INFONCE_BWD_LAUNCHES)
+    captured = PL.train_layout(inits, tasks, statics, **kw)
+    steps = PL._WARMUP_EPOCHS + 1
+    assert (L.INFONCE_FWD_LAUNCHES - before[0],
+            L.INFONCE_BWD_LAUNCHES - before[1]) == (6 * steps, 3 * steps)
+    with eager_runner():
+        eager = PL.train_layout(inits, tasks, statics, **kw)
+    assert len(captured[0]) == 3
+    assert all(bool(torch.isfinite(e).all()) for e in captured[0])
+    _assert_close_runs(captured, eager)
