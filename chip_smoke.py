@@ -163,13 +163,14 @@ line:
    the main graph's):
    the loss within rtol 1e-5, the gradient of
    the whole table within rtol 1e-5 plus 1e-5 of its largest entry, two
-   kernel runs bit-equal; each kernel's ms and the plain forward's and
-   backward's (device time: calls captured in a CUDA graph and replayed;
-   the plain repulsion of a row range cannot be captured and is timed
-   eagerly, ``plain_timing``), each kernel's own device time from
-   ``torch.profiler`` (``kernel_ms``: a backward's passes one by one) and
-   the bound from the bytes and operations of these inputs (library:
-   none, no one PyTorch call computes a term);
+   kernel runs bit-equal; the kernels' and the plain version's ms of a
+   forward whose gradient is wanted, of one under ``no_grad`` and of a
+   forward with its backward (device time: calls captured in a CUDA graph
+   and replayed; the plain repulsion of a row range cannot be captured
+   and is timed eagerly, ``plain_timing``), each kernel's own device time
+   from ``torch.profiler`` (``kernel_ms``: a backward's passes one by
+   one) and the bound from the bytes and operations of these inputs
+   (library: none, no one PyTorch call computes a term);
 14. knn_stages -- ``knn_tiled``'s stages timed at the main-path block
    (norm pre-pass, tile kernel, candidate permute + merge ``topk``,
    exact f32 re-score), and the tile kernel at the other main-path
@@ -197,8 +198,11 @@ line:
     ``fit_rep_bwd``) at the main path's shape with the row range and the
     scale rung beside, their launches on the fit/eval, CLI, scale and
     both mesh paths (host launches: a captured epoch's replays run the
-    captured kernels again; a backward's count is its calls, and its
-    ``passes`` give each of its kernels' own launches and device ms);
+    captured kernels again; a forward's count is its calls that saved the
+    backward's weights and anchor part, every forward on those paths, and
+    its ``passes`` give the loss-only instance's launches, none there, and
+    device ms; a backward's count is its calls, and its ``passes`` give
+    each of its kernels' own launches and device ms);
 16. infonce -- the fit layout's InfoNCE kernels (``csrc/infonce.cu``:
     a forward kernel a direction, the finishing kernel, one backward
     kernel for the pair) at both benchmark cells' shapes (31,783 and
@@ -314,22 +318,23 @@ def emit(obj) -> None:
 
 
 # The fit layout's term kernels (csrc/layout_terms.cu) by the name the
-# kernels line gives them, and their counters in ops/layout_terms.py.
-TERM_KERNELS = {"fit_attr": "FIT_ATTR_LAUNCHES",
-                "fit_attr_bwd": "FIT_ATTR_BWD_LAUNCHES",
-                "fit_rep": "FIT_REP_LAUNCHES",
-                "fit_rep_bwd": "FIT_REP_BWD_LAUNCHES"}
-# Each backward's kernels (its counter counts calls of its gather), counted
-# one by one in ops/layout_terms.py's BWD_PASS_LAUNCHES: the edge pass,
-# the gather and (the attraction, where a row has more than CHUNK_EDGES
-# in-edges) the finishing pass.
-TERM_PASSES = {"fit_attr_bwd": ("fit_attr_bwd_weights_kernel",
-                                "fit_attr_bwd_kernel",
+# kernels line gives them: each term's forward that saves its backward's
+# weights and anchor part (ops/layout_terms.py's FWD_LAUNCHES, with_grad:
+# every forward of a fit) and its backward (its calls). Every path that
+# fits launches each.
+TERM_KERNELS = ("fit_attr", "fit_attr_bwd", "fit_rep", "fit_rep_bwd")
+# The forwards that computed the loss alone (FWD_LAUNCHES, loss_only):
+# none on a path that fits.
+TERM_LOSS_ONLY = ("fit_attr_loss_only", "fit_rep_loss_only")
+# Each backward's kernels, counted one by one in ops/layout_terms.py's
+# BWD_PASS_LAUNCHES: the gather and (the attraction, where a row has more
+# than CHUNK_EDGES in-edges) the finishing pass.
+TERM_PASSES = {"fit_attr_bwd": ("fit_attr_bwd_kernel",
                                 "fit_attr_bwd_finish_kernel"),
-               "fit_rep_bwd": ("fit_rep_bwd_weights_kernel",
-                               "fit_rep_bwd_kernel")}
+               "fit_rep_bwd": ("fit_rep_bwd_kernel",)}
 # Every count term_launches() gives
-TERM_COUNTS = (*TERM_KERNELS, *(k for ks in TERM_PASSES.values() for k in ks))
+TERM_COUNTS = (*TERM_KERNELS, *TERM_LOSS_ONLY,
+               *(k for ks in TERM_PASSES.values() for k in ks))
 
 
 def reset_counts(KT) -> None:
@@ -341,22 +346,40 @@ def reset_counts(KT) -> None:
     L.INFONCE_FWD_LAUNCHES = L.INFONCE_BWD_LAUNCHES = 0
     KT.KNN_TILE_BF16_LAUNCHES = KT.KNN_TILE_F32_LAUNCHES = 0
     KT.ROW_NORM_LAUNCHES = 0
-    for counter in TERM_KERNELS.values():
-        setattr(LT, counter, 0)
-    for kernel in LT.BWD_PASS_LAUNCHES:
-        LT.BWD_PASS_LAUNCHES[kernel] = 0
+    LT.FIT_ATTR_BWD_LAUNCHES = LT.FIT_REP_BWD_LAUNCHES = 0
+    for counts in (*LT.FWD_LAUNCHES.values(), LT.BWD_PASS_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def term_launches() -> dict:
     """Launches of the layout-term kernels since the last reset, by the
-    kernels line's name and each backward kernel by its own (host
-    launches: a captured epoch launches them in its warm-up and capture,
-    and each replay runs the captured ones again)."""
+    kernels line's name (TERM_COUNTS) and each backward kernel by its own
+    (host launches: a captured epoch launches them in its warm-up and
+    capture, and each replay runs the captured ones again)."""
     from multimodal_umap_tpu_torch.ops import layout_terms as LT
 
-    return {**{name: getattr(LT, c) for name, c in TERM_KERNELS.items()},
-            **{k: LT.BWD_PASS_LAUNCHES[k] for k in TERM_COUNTS
-               if k not in TERM_KERNELS}}
+    fwd = LT.FWD_LAUNCHES
+    return {"fit_attr": fwd["fit_attr"]["with_grad"],
+            "fit_attr_bwd": LT.FIT_ATTR_BWD_LAUNCHES,
+            "fit_rep": fwd["fit_rep"]["with_grad"],
+            "fit_rep_bwd": LT.FIT_REP_BWD_LAUNCHES,
+            "fit_attr_loss_only": fwd["fit_attr"]["loss_only"],
+            "fit_rep_loss_only": fwd["fit_rep"]["loss_only"],
+            **{k: LT.BWD_PASS_LAUNCHES[k] for ks in TERM_PASSES.values()
+               for k in ks}}
+
+
+def terms_engaged(launches: dict, recomputed: bool = False) -> bool:
+    """Whether every forward of a fit saved its backward's weights and
+    anchor part and every backward consumed them: no loss-only forward,
+    and each term's with-grad forwards as many as its backward calls
+    (twice as many where each modality's loss is recomputed in its
+    backward, past ``layout._MODALITY_REMAT_ROWS``)."""
+    per = 2 if recomputed else 1
+    return all(launches[f"{t}_loss_only"] == 0 and launches[t] > 0
+               and launches[t] == per * launches[f"{t}_bwd"]
+               for t in ("fit_attr", "fit_rep"))
 
 
 def tile_launches(KT) -> int:
@@ -618,9 +641,8 @@ def bound_ms(nq, n, d, tile_k, bf16=True):
 
 KERNEL_FUNCTIONS = ("knn_tile_bf16_kernel", "knn_tile_f32_kernel",
                     "rownorm_bf16_kernel", "fit_attr_fwd_kernel",
-                    "fit_attr_bwd_weights_kernel", "fit_attr_bwd_kernel",
-                    "fit_attr_bwd_finish_kernel", "fit_rep_fwd_kernel",
-                    "fit_rep_bwd_weights_kernel", "fit_rep_bwd_kernel",
+                    "fit_attr_bwd_kernel", "fit_attr_bwd_finish_kernel",
+                    "fit_rep_fwd_kernel", "fit_rep_bwd_kernel",
                     "infonce_fwd_kernel", "infonce_finish_kernel",
                     "infonce_bwd_kernel")
 
@@ -628,7 +650,8 @@ KERNEL_FUNCTIONS = ("knn_tile_bf16_kernel", "knn_tile_f32_kernel",
 def ptxas_report(log: str) -> dict:
     """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``; a
     template instance is named with its arguments
-    (``fit_attr_fwd_kernel<16,4>``: 16 lanes a row, 4 columns a load)."""
+    (``fit_attr_fwd_kernel<16,4,1>``: 16 lanes a row, 4 columns a load,
+    the instance that saves the backward's weights and anchor part)."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -636,9 +659,9 @@ def ptxas_report(log: str) -> dict:
             name = m.group(1)
             cur = next((k for k in KERNEL_FUNCTIONS
                         if re.search(k + r"(I|E|v|$)", name)), name)
-            args = re.search(re.escape(cur) + r"I((?:Li\d+E)+)E", name)
+            args = re.search(re.escape(cur) + r"I((?:L[ib]\d+E)+)E", name)
             if args and cur in KERNEL_FUNCTIONS:
-                cur += "<" + ",".join(re.findall(r"Li(\d+)E",
+                cur += "<" + ",".join(re.findall(r"L[ib](\d+)E",
                                                  args.group(1))) + ">"
             out[cur] = {}
             continue
@@ -743,15 +766,21 @@ def synthetic_terms(n: int, dev, seed: int = 0, d: int = 64) -> dict:
 
 
 def term_work(term: str, inp: dict, row0: int) -> dict:
-    """Compulsory bytes and operations of each kernel on these inputs
-    (each input read once, each output written once, only what the data
-    needs: slots and anchors whose coefficient is 0 read nothing): per
-    anchor-neighbour pair 3 D operations for the distance, 2 D more for
-    the gradient, and 40 for the curve."""
+    """Compulsory bytes and operations on these inputs (each input read
+    once, each output written once, only what the data needs: slots and
+    anchors whose coefficient is 0 read nothing; per anchor-neighbour pair
+    3 D operations for the distance, 2 D for each part of the gradient and
+    40 for each curve): ``fwd_loss_only`` (the loss alone), ``fwd`` (the
+    loss, and the weights and anchor rows the backward reads), ``bwd``
+    (the gather: the table, the weights, the attraction's CSR and the
+    anchor rows read, the gradient table written), ``step`` (the term as
+    one: its inputs once, the loss's partials and the gradient table
+    once)."""
     from multimodal_umap_tpu_torch.ops import layout_terms as LT
 
     e = inp["embed"]
     n, d = e.shape
+    table = n * d * 4
     if term == "attr":
         nbrs, coef = inp["nbrs"], inp["coef"]
         n_rows, k = nbrs.shape
@@ -759,13 +788,14 @@ def term_work(term: str, inp: dict, row0: int) -> dict:
         pairs = int(live.sum())
         anchors = torch.arange(row0, row0 + n_rows, device=e.device)
         rows = int(torch.unique(torch.cat([anchors, nbrs[live]])).numel())
-        # the backward reads the CSR (int32, built once per fit); its
-        # chunk plan and scratch are the kernels' own work, not counted
+        # the inputs: the rows read, the live slots' ids, the
+        # coefficients; the backward's CSR (int32, built once per fit;
+        # its chunk plan and scratch are the kernels' own work, not
+        # counted)
+        inputs = pairs * 8 + n_rows * k * 4
+        csr = (n + 1) * 4 + n_rows * k * 4
+        weights = n_rows * k * 4
         rev = LT.reverse_index(nbrs, n)
-        fwd = (rows * d * 4 + pairs * 8 + n_rows * k * 4 + n_rows * 4,
-               pairs * (3 * d + 40))
-        bwd = (n * d * 4 + pairs * 8 + n_rows * k * 4 + (n + 1) * 4
-               + n_rows * k * 4 + 4 + n * d * 4, 2 * pairs * (5 * d + 40))
         # kept in-edges a row (a hub's set its warp's time before the
         # chunk plan), and the plan's work items (a tree from before the
         # plan, as compare_layout_terms.py may run, has none)
@@ -786,13 +816,24 @@ def term_work(term: str, inp: dict, row0: int) -> dict:
         pairs = int(anchors.numel()) * r
         negs = pi[(anchors[:, None] + rolls[None, :]) % n].reshape(-1)
         rows = int(torch.unique(torch.cat([anchors, negs])).numel())
-        fwd = (rows * d * 4 + pairs * 8 + r * 8 + n_rows * 4 + n_rows * 4,
-               pairs * (3 * d + 40))
-        bwd = (n * d * 4 + pairs * 8 + n * 8 + r * 8 + n_rows * 4 + 4
-               + n * d * 4, 2 * pairs * (5 * d + 40))
+        # the permutation's entries read, the offsets, the coefficients;
+        # the backward's inverse permutation
+        inputs = pairs * 8 + r * 8 + n_rows * 4
+        csr = n * 8 + r * 8
+        weights = n_rows * r * 4
         skew = {}
+    anchor_rows = n_rows * d * 4
+    loss_ops, grad_ops = pairs * (3 * d + 40), pairs * (2 * d + 40)
+    work = {
+        "fwd_loss_only": (rows * d * 4 + inputs + n_rows * 4, loss_ops),
+        "fwd": (rows * d * 4 + inputs + n_rows * 4 + weights + anchor_rows,
+                loss_ops + grad_ops),
+        "bwd": (table + weights + csr + 4 + anchor_rows + table,
+                pairs * 2 * d),
+        "step": (table + inputs + csr + n_rows * 4 + 4 + table,
+                 loss_ops + grad_ops + pairs * 2 * d)}
     out = {**skew}
-    for name, (nbytes, ops) in (("fwd", fwd), ("bwd", bwd)):
+    for name, (nbytes, ops) in work.items():
         t_b = nbytes / H100_BYTES_PER_S * 1e3
         t_o = ops / H100_F32_FLOPS * 1e3
         out[name] = {"bytes": nbytes, "operations": ops,
@@ -807,14 +848,17 @@ def check_term(term: str, inp: dict, row0: int = 0, reps: int = 20) -> dict:
     far negatives, by about a s^b ulps, past the tolerance where every
     pair is far, as at D = 200): the loss and the gradient of the whole
     table (gradient output 1), two kernel runs bit-equal, and the times
-    of each kernel and of the plain version's forward and backward (in
-    float32, as the port runs it): device time of a replayed CUDA graph
+    of each kernel and of the plain version (in float32, as the port runs
+    it): ``fwd`` a forward whose gradient is wanted, ``fwd_loss_only`` one
+    under ``no_grad``, ``step`` a forward and its backward, ``bwd`` their
+    difference (a backward ends its forward's gradient table in place, so
+    it runs once a forward); device time of a replayed CUDA graph
     (``graph_ms``; an eager loop of these sub-0.1 ms calls would time the
     host's launches), but for the plain repulsion of a row range, which
     copies its row0 from the host and cannot be captured (eager,
     ``cuda_ms``, marked in ``plain_timing``); and each kernel's own
-    device time from ``torch.profiler`` (``kernel_ms``: the backward's
-    passes one by one)."""
+    device time from ``torch.profiler`` (``kernel_ms``, by the same three
+    calls: a step's gives the backward's passes one by one)."""
     from multimodal_umap_tpu_torch.ops import layout_terms as LT
 
     e, a, b = inp["embed"], inp["a"], inp["b"]
@@ -874,40 +918,42 @@ def check_term(term: str, inp: dict, row0: int = 0, reps: int = 20) -> dict:
     line["ok"] = line["ok"] and line["bit_equal_twice"]
     del g1, g2, gp
 
-    def fwd(fn):
-        with torch.no_grad():
-            fn(e)
+    x = e.detach().clone().requires_grad_(True)
+
+    def calls(fn):
+        """The three timed calls of ``fn``."""
+        def loss_only():
+            with torch.no_grad():
+                fn(x)
+
+        return {"fwd": lambda: fn(x), "fwd_loss_only": loss_only,
+                "step": lambda: torch.autograd.grad(fn(x), x)}
 
     # the backward runs on its forward's stream: the side stream, where
-    # graph_ms captures it
+    # graph_ms captures both
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
 
-    def bwd_of(fn):
-        with torch.cuda.stream(side):
-            x = e.detach().clone().requires_grad_(True)
-            loss = fn(x)
-        return lambda: torch.autograd.grad(loss, x, retain_graph=True)
+    def timed(fn, reps, how):
+        ms = {k: how(c, reps) for k, c in calls(fn).items()}
+        return {**ms, "bwd": ms["step"] - ms["fwd"]}
 
-    line["ms"] = {"fwd": graph_ms(lambda: fwd(kernel), reps, side),
-                  "bwd": graph_ms(bwd_of(kernel), reps, side)}
-    line["kernel_ms"] = {"fwd": profiled_term_ms(lambda: fwd(kernel), reps),
-                         "bwd": profiled_term_ms(bwd_of(kernel), reps)}
+    line["ms"] = timed(kernel, reps, lambda c, r: graph_ms(c, r, side))
+    line["kernel_ms"] = {k: profiled_term_ms(c, reps)
+                         for k, c in calls(kernel).items()}
     plain_reps = max(2, reps // 4)
     if term == "rep" and row0 != 0:
         line["plain_timing"] = "eager"
-        line["plain_ms"] = {"fwd": cuda_ms(lambda: fwd(plain), plain_reps),
-                            "bwd": cuda_ms(bwd_of(plain), plain_reps)}
+        line["plain_ms"] = timed(plain, plain_reps, cuda_ms)
     else:
         line["plain_timing"] = "graph"
-        line["plain_ms"] = {
-            "fwd": graph_ms(lambda: fwd(plain), plain_reps, side),
-            "bwd": graph_ms(bwd_of(plain), plain_reps, side)}
+        line["plain_ms"] = timed(plain, plain_reps,
+                                 lambda c, r: graph_ms(c, r, side))
     line["work"] = term_work(term, inp, row0)
     return line
 
 
-def layout_terms(main_inputs: dict, dev) -> dict:
+def layout_terms(main_inputs: dict, dev, cells: bool = False) -> dict:
     """Phase 13 (see the module docstring): each term's kernels against
     its plain version at the main path's first fit-layout call, at a
     rank's row range of it (the second half: row0 = N / 2, as rank 1 of
@@ -915,7 +961,8 @@ def layout_terms(main_inputs: dict, dev) -> dict:
     at the main path's rows with an --out_dim past 128 (D = 200: two
     column tiles a row); and the attraction
     on a random graph of the main path's shape (no hubs), beside its
-    hub-heavy main graph."""
+    hub-heavy main graph. ``cells``: also at each benchmark cell's rows
+    (``TERM_CELL_SHAPES``, synthetic inputs at D = 64)."""
     out = {"phase": "layout_terms", "library": "none (no one call)",
            "tolerance": {"loss_rtol": TERM_LOSS_RTOL,
                          "grad_rtol": TERM_GRAD_RTOL,
@@ -943,8 +990,18 @@ def layout_terms(main_inputs: dict, dev) -> dict:
     for term in ("attr", "rep"):
         out[term]["wide"] = check_term(term, wide[term], reps=5)
     del wide
+    for name, rows in TERM_CELL_SHAPES if cells else ():
+        inp = synthetic_terms(rows, dev, seed=3)
+        for term in ("attr", "rep"):
+            out[term][name] = check_term(term, inp[term])
+        del inp
     torch.cuda.empty_cache()
     return out
+
+
+# The benchmark cells' rows (perfbench/configs/), for layout_terms(cells=)
+TERM_CELL_SHAPES = (("flickr30k", 31_783), ("coco2017", 118_287),
+                    ("spokencoco", 113_287))
 
 
 # An --out_dim past the 128 columns that the kernels hold in registers
@@ -976,10 +1033,16 @@ def term_entries(tline: dict, by_path: dict) -> list[dict]:
         paths = {p: c[name] for p, c in by_path.items()}
         main = tline[term]["main"]
         # a backward is one call of its passes' kernels: each one's own
-        # launches (all paths) and device ms at the main path's shape
+        # launches (all paths) and device ms at the main path's shape (in
+        # a step's profile); a forward's loss-only instance beside it
         passes = {k: {"launches": sum(c[k] for c in by_path.values()),
-                      "ms": main["kernel_ms"][way].get(k, 0.0)}
+                      "ms": main["kernel_ms"]["step"].get(k, 0.0)}
                   for k in TERM_PASSES.get(name, ())}
+        if way == "fwd":
+            passes = {f"{name}_loss_only": {
+                "launches": sum(c[f"{name}_loss_only"]
+                                for c in by_path.values()),
+                "ms": main["ms"]["fwd_loss_only"]}}
         out.append({
             "name": name, "route": "cuda",
             "source": "multimodal_umap_tpu_torch/csrc/layout_terms.cu",
@@ -1612,8 +1675,12 @@ def main() -> None:
     check(launches["after_knn_test"] > launches["after_transform"],
           "knn_test launched no kNN kernel")
     check(norm_launches > 0, "the main path launched no norm pre-pass")
-    check(all(v > 0 for v in main_term_launches.values()),
+    check(all(v > 0 for k, v in main_term_launches.items()
+              if k not in TERM_LOSS_ONLY),
           f"the main path left a layout-term kernel unlaunched: "
+          f"{main_term_launches}")
+    check(terms_engaged(main_term_launches),
+          f"a main-path fit forward did not save its backward's weights: "
           f"{main_term_launches}")
 
     # 7. the recon path (save/load, embed_and_recon, crossmodal_recon)
@@ -1673,8 +1740,12 @@ def main() -> None:
           and cline["reload_bit_equal_bf16"],
           "CLI archive not bf16, or its reload not bit-equal bf16")
     check(metrics["knn_engine"] == "approx", "CLI metrics lost the engine")
-    check(all(v > 0 for v in cli_launches.values()),
+    check(all(v > 0 for k, v in cli_launches.items()
+              if k not in TERM_LOSS_ONLY),
           f"CLI path left a kernel mode unlaunched: {cli_launches}")
+    check(terms_engaged(cli_launches),
+          f"a CLI fit forward did not save its backward's weights: "
+          f"{cli_launches}")
 
     # 10. lobpcg and approx on the card
     eline = engine_checks(cli_model, images, dev)
@@ -1717,6 +1788,12 @@ def main() -> None:
                                                *TERM_KERNELS,
                                                *infonce_launches())),
           f"scale path left a kernel unlaunched: {scale_launches}")
+    from multimodal_umap_tpu_torch.models import layout as PL
+
+    check(terms_engaged(scale_launches,
+                        recomputed=N_SCALE > PL._MODALITY_REMAT_ROWS),
+          f"a scale-path fit forward did not save its backward's weights: "
+          f"{scale_launches}")
 
     # 12. the mesh path: NCCL at world size 1 in process, then two gloo
     # ranks sharing this card (mesh_path_torch.py)
@@ -1740,6 +1817,9 @@ def main() -> None:
     check(all(part[k] > 0 for part in mesh_terms.values()
               for k in TERM_KERNELS),
           f"mesh path left a layout-term kernel unlaunched: {mesh_terms}")
+    check(all(terms_engaged(part) for part in mesh_terms.values()),
+          f"a mesh-path fit forward did not save its backward's weights: "
+          f"{mesh_terms}")
     mesh_nce = {part: mesh_launches[f"{part}_infonce"]
                 for part in ("nccl_world1", "gloo_two_ranks")}
     check(all(v > 0 for part in mesh_nce.values() for v in part.values()),

@@ -1,19 +1,24 @@
 """Time the fit layout's term kernels of several checkouts in turns on one
 CUDA GPU.
 
-    python3 compare_layout_terms.py TREE [TREE ...] [--out FILE]
+    python3 compare_layout_terms.py TREE [TREE ...] [--rows N] [--cells]
+                                    [--out FILE]
 
 Each TREE is the root of a checkout of this repository (``.`` for this
 one; an earlier commit unpacked with ``git archive`` into a git-ignored
 directory). In the order given -- for an A/B, parent change change parent
 -- one process a tree, with that tree's package and its own kernel build,
-runs this checkout's ``chip_smoke.layout_terms`` phase: the same shapes,
-checks (against plain, bit-equal twice) and timers for every tree. The
+runs this checkout's ``chip_smoke.layout_terms`` phase (``--cells``:
+with the benchmark cells' rows, ``TERM_CELL_SHAPES``, beside its own
+shapes): the same shapes, checks (against plain, bit-equal twice) and
+timers for every tree (a forward whose gradient is wanted, one under
+``no_grad``, a forward and its backward; each kernel's own ms). The
 main path's inputs come from a fit as ``chip_smoke.py`` runs it, cut to 2
-fit epochs: the first fit-layout call, whose inputs are kept, is the same
+fit epochs (``--rows``: of that many pairs instead of the main path's
+31,744): the first fit-layout call, whose inputs are kept, is the same
 as in the full fit. Prints the card (``nvidia-smi`` name and power limit),
-then one JSON line a run: per term and shape the kernels' forward and
-backward ms, each kernel's own ms, the plain version's ms, the bound,
+then one JSON line a run: per term and shape the kernels' ms of each
+timed call, each kernel's own ms, the plain version's ms, the bound,
 whether it held against plain and was bit-equal twice, and the in-degree
 and chunk counts. Each run also replays the first run's first
 fit-layout call (``train_layout(mode="fit")``, captured on the card; its
@@ -21,7 +26,8 @@ inputs kept in ``FIRST_FIT``, since the graph built on the card differs
 a little from process to process) for ``TRAJECTORY_EPOCHS`` epochs and
 prints the sha256 of the fitted embeddings and the loss history: the
 terms' forward values feed only the loss history, so a change to the
-forward kernels alone keeps the digest of every tree equal (the last
+kernels that keeps the gradients' bits keeps the digest of every tree
+equal (the last
 line says whether the digests agree, and the largest relative
 difference of the loss histories from the first run's). ``--out`` keeps each run's whole phase line. Needs a GPU; imports
 nothing of JAX.
@@ -65,9 +71,10 @@ def observed(inits, tasks, statics, **kw):
 MX.train_layout = observed
 
 dev = torch.device("cuda")
-data = clustered_modalities(CS.N_TRAIN + CS.N_TEST, dims=CS.DIMS, seed=0,
+rows = int(sys.argv[4])
+data = clustered_modalities(rows + CS.N_TEST, dims=CS.DIMS, seed=0,
                             centers_seed=1)
-train_np = {k: v[:CS.N_TRAIN] for k, v in data.items()}
+train_np = {k: v[:rows] for k, v in data.items()}
 del data
 cfg = Config()
 cfg.train_epochs = 2
@@ -90,7 +97,7 @@ embeds, hist = PL.train_layout(
 digest = hashlib.sha256()
 for e in embeds:
     digest.update(e.detach().cpu().numpy().tobytes())
-line = CS.layout_terms(main, dev)
+line = CS.layout_terms(main, dev, cells=sys.argv[5] == "1")
 line["trajectory"] = {"epochs": int(sys.argv[2]),
                       "embed_sha256": digest.hexdigest(),
                       "loss_history": hist.tolist()}
@@ -99,6 +106,8 @@ print("RESULT " + json.dumps(line), flush=True)
 
 PLAN_KEYS = ("max_in_degree", "max_csr_in_degree", "multi_chunk_rows",
              "chunks")
+# The timed calls of chip_smoke.check_term (``bwd``: step - fwd)
+CALLS = ("fwd", "fwd_loss_only", "bwd", "step")
 
 
 def summary(line: dict) -> dict:
@@ -109,8 +118,7 @@ def summary(line: dict) -> dict:
                 "rows": v["rows"], "row0": v["row0"], "ms": v["ms"],
                 "kernel_ms": v["kernel_ms"], "plain_ms": v["plain_ms"],
                 "plain_timing": v["plain_timing"],
-                "bound_ms": {w: v["work"][w]["bound_ms"]
-                             for w in ("fwd", "bwd")},
+                "bound_ms": {w: v["work"][w]["bound_ms"] for w in CALLS},
                 "ok": v["ok"], "bit_equal_twice": v["bit_equal_twice"],
                 **{k: v["work"][k] for k in PLAN_KEYS if k in v["work"]}}
     return out
@@ -135,12 +143,19 @@ def trajectories_agree(full: list) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("trees", nargs="+")
+    ap.add_argument("--rows", type=int, default=None)
+    ap.add_argument("--cells", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    sys.path.insert(0, HERE)
+    import chip_smoke as CS
+
+    rows = CS.N_TRAIN if args.rows is None else args.rows
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(json.dumps({"device": smi}), flush=True)
+    print(json.dumps({"device": smi, "rows": rows, "cells": args.cells}),
+          flush=True)
     full = []
     os.makedirs(os.path.dirname(FIRST_FIT), exist_ok=True)
     if os.path.exists(FIRST_FIT):
@@ -150,7 +165,8 @@ def main() -> None:
         env = {**os.environ, "PYTHONPATH": root}
         res = subprocess.run(
             [sys.executable, "-c", CHILD, os.path.join(HERE, "chip_smoke.py"),
-             str(TRAJECTORY_EPOCHS), FIRST_FIT],
+             str(TRAJECTORY_EPOCHS), FIRST_FIT, str(rows),
+             "1" if args.cells else "0"],
             cwd=root, env=env, capture_output=True, text=True, check=False)
         got = [ln[7:] for ln in res.stdout.splitlines()
                if ln.startswith("RESULT ")]

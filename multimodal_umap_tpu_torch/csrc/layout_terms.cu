@@ -6,8 +6,8 @@
 // layout.py:252-285) and `_fit_repulsion` (:288-333), each elementwise
 // chain fused with its backward. The PyTorch port ran them as some 40
 // (attraction) and 430 (repulsion) separate kernels a modality and
-// epoch; here each term is one forward kernel and a backward of two
-// (repulsion) or three (attraction) passes.
+// epoch; here each term is one forward kernel and a backward of one
+// (repulsion) or two (attraction) passes.
 //
 // Attraction (K2), for anchor rows [row0, row0 + n_rows) of x = embed
 // (N, D), neighbour ids nbrs (n_rows, k) and coefficients coef (n_rows, k):
@@ -60,22 +60,33 @@
 // before any reduction, reduces them side by side, and lane s of the group
 // takes pair s's curve, once. No row is read for a coefficient of 0. The
 // kernels:
-// * The forwards: the terms of an anchor row's k slots (attraction) or R
-//   rounds (repulsion), summed by each lane over its own pairs, then by
-//   the group, into the row's partial.
-// * A backward's edge pass: lane s computes pair s's weight, w[i k + m] =
-//   2 g coef dfds(s) (attraction), w[i R + r] = 2 g / R rep_coef dpsids(s)
-//   (repulsion), 0 where s < 1e-6, into an f32 scratch the wrapper
-//   allocates. Then it writes the row's anchor part to the output row,
-//   sum w (x_i - x_j), pairs in order: the attraction from the rows still
-//   in registers, the repulsion from the rows read again from L1 (holding
-//   them across its curve's two divisions spilled registers).
-// * A gather pass of loads and FMAs: no reduction, no transcendental. Its
-//   items issue BATCH pairs' index, weight and row loads before their
-//   arithmetic and end the output row from its anchor part: the
-//   attraction's in-edges, -= w[e_p] (x_{row0 + e_p / k} - x_t) in CSR
-//   order; the repulsion's negative part, -= w (x_ia - x_t) in round order.
-//   The difference form is kept: (sum w) x_t - sum w x_j would cancel.
+// * The forwards: the loss terms of an anchor row's k slots (attraction)
+//   or R rounds (repulsion), summed by each lane over its own pairs, then
+//   by the group, into the row's partial. Where the call's gradient is
+//   wanted (the GRAD instance) the same pass, from the rows already in
+//   registers, also does what needs the pair's distance: lane s computes
+//   pair s's weight at g = 1 beside its loss term, sharing its powf (w[i k
+//   + m] = 2 coef dfds(s), attraction; w[i R + r] = 2 / R rep_coef
+//   dpsids(s), repulsion; 0 where s < 1e-6) into an f32 buffer the
+//   wrapper keeps for the backward, and the group writes the row's anchor
+//   part, sum w (x_i - x_j) in pair order, to the gradient table the
+//   wrapper keeps too: the attraction from the rows still in registers,
+//   the repulsion from the rows read again from L1 (holding them across
+//   its curve's divisions spilled registers). The loss only (no_grad, or
+//   a table that needs no gradient) takes the instance without them. An
+//   epoch so reads each kept pair's partner row twice, in the forward and
+//   in the gather, where a backward that redid the distances read it
+//   three times; the loss's gradient g, known only in the backward,
+//   scales each row where the gather ends it (g = 1 in every fit: the
+//   bits of weights formed at 2 g coef dfds(s)).
+// * A backward's gather pass of loads and FMAs: no reduction, no
+//   transcendental. Its items issue BATCH pairs' index, weight and row
+//   loads before their arithmetic and end the output row from its anchor
+//   part, in place in the forward's gradient table: the attraction's
+//   in-edges, -= w[e_p] (x_{row0 + e_p / k} - x_t) in CSR order; the
+//   repulsion's negative part, -= w (x_ia - x_t) in round order; then
+//   times g. The difference form is kept: (sum w) x_t - sum w x_j would
+//   cancel.
 // * The attraction's work list is balanced by the chunk plan: a row of at
 //   most C in-edges (ops/layout_terms.py's CHUNK_EDGES = 32, passed to the
 //   gather at launch) is one item that ends its gradient row; a longer row
@@ -87,12 +98,14 @@
 // shared memory (no 64-bit division a pair). Any D runs in bounded
 // registers: every kernel walks a row in tiles of G x VEC columns (at most
 // 128), holding the anchor row in registers where one tile covers it; past
-// one tile the edge pass sums the anchor part in the output row.
+// one tile the forward sums the anchor part in the output row.
 // Device ms a call at the main path's first fit-layout call (31,744 x 64,
-// k = 15, R = 8; H100 80GB HBM3, 700.00 W; PERF.md), one warp a row before,
-// lane groups now: attraction forward 0.082 -> 0.032, backward 0.539 ->
-// 0.087 (edge 0.037, gather 0.045, finish 0.004); repulsion forward 0.067
-// -> 0.025, backward 0.156 -> 0.056 (edge 0.032, gather 0.022).
+// k = 15, R = 8; H100 80GB HBM3, 700.00 W; PERF.md), forward and backward
+// together: attraction 0.119 -> 0.094 (forward 0.036, its loss alone
+// 0.032; gather 0.045, finish 0.004), repulsion 0.083 -> 0.061 (forward
+// 0.033, its loss alone 0.025; gather 0.020), against a backward that
+// redid the distances in an edge pass (0.037 / 0.032) after a forward of
+// the loss alone.
 //
 // C entry points, bound with ctypes, one a kernel (a backward's passes are
 // launched by its wrapper in order, each counted); they launch on the
@@ -212,24 +225,19 @@ __device__ __forceinline__ float clamped(float sq) {
   return sq < CLAMP ? CLAMP : sq;
 }
 
-// d/ds log1p(a s^b)
-__device__ __forceinline__ float attr_dfds(float s, float a, float b) {
-  const float sb = powf(s, b);
-  return a * b * powf(s, b - 1.f) / (1.f + a * sb);
-}
-
-// -log(a s^b / (1 + a s^b) + 1e-6)
-__device__ __forceinline__ float rep_psi(float s, float a, float b) {
-  const float u = a * powf(s, b);
-  return -logf(u / (1.f + u) + 1e-6f);
-}
-
-// d/ds of rep_psi
-__device__ __forceinline__ float rep_dpsids(float s, float a, float b) {
+// One pair's repulsion: psi(s) = -log(a s^b / (1 + a s^b) + 1e-6) added to
+// acc and, with GRAD, the weight g0 c dpsi/ds(s) (0 where s < 1e-6), both
+// from one a s^b; s = sq clamped at 1e-6.
+template <bool GRAD>
+__device__ __forceinline__ float rep_pair(float& acc, float g0c, float sq,
+                                          float a, float b) {
+  const float s = clamped(sq);
   const float u = a * powf(s, b);
   const float q = u / (1.f + u);
+  acc += -logf(q + 1e-6f);
+  if (!GRAD || !(sq >= CLAMP)) return 0.f;  // NaN too, as torch's mask
   const float opu = 1.f + u;
-  return -(a * b * powf(s, b - 1.f)) / ((q + 1e-6f) * opu * opu);
+  return g0c * (-(a * b * powf(s, b - 1.f)) / ((q + 1e-6f) * opu * opu));
 }
 
 __device__ __forceinline__ int64_t wrap(int64_t v, int64_t n) {
@@ -237,96 +245,50 @@ __device__ __forceinline__ int64_t wrap(int64_t v, int64_t n) {
   return v < 0 ? v + n : v;
 }
 
-// A forward's batch: sq[s] += |x_i - x_{id[s]}|^2 over this lane's columns,
-// for the pairs with on[s] (no row read for the others), each tile's BATCH
-// row loads before their arithmetic; u1: x_i's tile where one covers it.
-template <int G, int VEC>
-__device__ __forceinline__ void lane_sq(
-    float (&sq)[BATCH], const float* __restrict__ x,
-    const float* __restrict__ xi, const int64_t (&id)[BATCH],
-    const bool (&on)[BATCH], const Frag<VEC>& u1, int col1, int D) {
-  for (int col = col1; col < D; col += G * VEC) {
-    const Frag<VEC> u = D <= G * VEC ? u1 : frag_load<VEC>(xi + col);
-    Frag<VEC> y[BATCH];
-#pragma unroll
-    for (int s = 0; s < BATCH; ++s)
-      y[s] = on[s] ? frag_load<VEC>(x + id[s] * D + col) : u;
-#pragma unroll
-    for (int s = 0; s < BATCH; ++s) sq[s] = frag_sq<VEC>(sq[s], u, y[s]);
-  }
+// One pair's attraction: the loss term coef log1p(a s^b) added to acc and,
+// with GRAD, the weight 2 coef dfds(s) (0 where s < 1e-6), both from one
+// powf(s, b); s = sq clamped at 1e-6. The weight's expression is that of
+// g0 coef dfds(s) with g0 = 2 g at g = 1, its denominator 1 + a s^b one
+// fused multiply-add, as nvcc contracts it where the weight has s^b to
+// itself (with a s^b also the loss's, nvcc rounds it first, and the
+// weights change in their last bits).
+template <bool GRAD>
+__device__ __forceinline__ float attr_pair(float& acc, float cs, float sq,
+                                           float a, float b) {
+  const float s = clamped(sq);
+  const float sb = powf(s, b);
+  acc += cs * log1pf(a * sb);
+  if (!GRAD || !(sq >= CLAMP)) return 0.f;  // NaN too, as torch's mask
+  return 2.f * cs * (a * b * powf(s, b - 1.f) / __fmaf_rn(a, sb, 1.f));
 }
 
 // The attraction forward: partial[i] = sum_m coef[i,m] log1p(a s^b) over
-// the k slots of anchor row row0 + i. A group of G lanes a row; lane s of
-// the group takes slot s's curve and sums its slots' terms in order.
-template <int G, int VEC>
+// the k slots of anchor row row0 + i and, with GRAD (a call whose
+// gradient is wanted), what the backward's gather needs: the weights at
+// g = 1, w[i k + m] = 2 coef[i,m] dfds(s), 0 where the coefficient is 0
+// (no row read) or s < 1e-6, and the row's anchor part, grad[row0 + i] =
+// sum_m w (x_i - x_nbr) in slot order, from the rows just read. A group
+// of G lanes a row; lane s of the group takes slot s's curve and sums its
+// slots' terms in order.
+template <int G, int VEC, bool GRAD>
 __global__ void __launch_bounds__(BLOCK)
     fit_attr_fwd_kernel(const float* __restrict__ x,
                         const int64_t* __restrict__ nbrs,
                         const float* __restrict__ coef,
-                        float* __restrict__ partial, int n_rows, int k, int D,
+                        float* __restrict__ partial, float* __restrict__ w,
+                        float* __restrict__ grad, int n_rows, int k, int D,
                         int64_t row0, float a, float b) {
   constexpr int NS = (BATCH + G - 1) / G;  // slots a lane's curve takes
   const int lane = threadIdx.x % G;
   const int64_t i = ((int64_t)blockIdx.x * BLOCK + threadIdx.x) / G;
   const bool live = i < n_rows;  // a group past the rows joins the shuffles
-  const float* xi = x + (row0 + (live ? i : 0)) * D;
-  const int col1 = lane * VEC;  // x_i held in registers where one tile fits
-  const Frag<VEC> u1 = D <= G * VEC && col1 < D ? frag_load<VEC>(xi + col1)
-                                                : frag_zero<VEC>();
-  float acc = 0.f;  // this lane's terms
-  for (int m0 = 0; m0 < k; m0 += BATCH) {
-    float c[BATCH], sq[BATCH];
-    int64_t id[BATCH];
-    bool on[BATCH];
-#pragma unroll
-    for (int s = 0; s < BATCH; ++s) {
-      const bool in = live && m0 + s < k;
-      const int64_t e = i * k + m0 + s;
-      c[s] = in ? coef[e] : 0.f;
-      id[s] = in ? nbrs[e] : 0;
-      on[s] = c[s] != 0.f;  // c * finite = 0: no row read
-      sq[s] = 0.f;
-    }
-    lane_sq<G, VEC>(sq, x, xi, id, on, u1, col1, D);
-#pragma unroll
-    for (int s = 0; s < BATCH; ++s) sq[s] = group_sum<G>(sq[s]);
-#pragma unroll
-    for (int q = 0; q < NS; ++q) {
-      const int s = q * G + lane;
-      const float cs = pick(c, s);  // 0 past the batch and past k
-      if (cs != 0.f) acc += cs * log1pf(a * powf(clamped(pick(sq, s)), b));
-    }
-  }
-  acc = group_sum<G>(acc);
-  if (live && lane == 0) partial[i] = acc;
-}
-
-// The attraction backward's edge pass: w[i k + m] = 2 g coef[i,m]
-// dfds(s) for the k slots of anchor row row0 + i, 0 where the coefficient
-// is 0 (no row read) or s < 1e-6, and the row's anchor part,
-// grad[row0 + i] = sum_m w (x_i - x_nbr) in slot order, from the rows
-// just read. A group of G lanes an anchor row.
-template <int G, int VEC>
-__global__ void __launch_bounds__(BLOCK)
-    fit_attr_bwd_weights_kernel(const float* __restrict__ x,
-                                const int64_t* __restrict__ nbrs,
-                                const float* __restrict__ coef,
-                                const float* __restrict__ grad_out,
-                                float* __restrict__ w,
-                                float* __restrict__ grad, int n_rows, int k,
-                                int D, int64_t row0, float a, float b) {
-  constexpr int NS = (BATCH + G - 1) / G;  // slots a lane weighs a batch
-  const int lane = threadIdx.x % G;
-  const int64_t i = ((int64_t)blockIdx.x * BLOCK + threadIdx.x) / G;
-  const bool live = i < n_rows;  // a group past the rows joins the shuffles
-  const float g0 = 2.f * *grad_out;  // d|u-w|^2/du = 2 (u - w)
   const int64_t row = row0 + (live ? i : 0);
   const float* xi = x + row * D;
-  float* gi = grad + row * D;
+  float* gi = GRAD ? grad + row * D : nullptr;
   const bool one_tile = D <= G * VEC;  // the row's values stay in registers
   const int col1 = lane * VEC;
   Frag<VEC> ga = frag_zero<VEC>();  // the anchor part of a one-tile row
+  float acc = 0.f;  // this lane's terms
   for (int m0 = 0; m0 < k; m0 += BATCH) {
     float c[BATCH];
     const float* py[BATCH];
@@ -334,13 +296,13 @@ __global__ void __launch_bounds__(BLOCK)
     for (int s = 0; s < BATCH; ++s) {
       const int64_t e = i * k + m0 + s;
       c[s] = live && m0 + s < k ? coef[e] : 0.f;
-      py[s] = c[s] != 0.f ? x + nbrs[e] * D : xi;
+      py[s] = c[s] != 0.f ? x + nbrs[e] * D : xi;  // c * finite = 0: no read
     }
-    float acc[BATCH];
+    float sq[BATCH];
     Frag<VEC> u = frag_zero<VEC>(), y[BATCH];
 #pragma unroll
     for (int s = 0; s < BATCH; ++s) {
-      acc[s] = 0.f;
+      sq[s] = 0.f;
       y[s] = u;
     }
     for (int col = col1; col < D; col += G * VEC) {
@@ -349,49 +311,55 @@ __global__ void __launch_bounds__(BLOCK)
       for (int s = 0; s < BATCH; ++s)
         y[s] = c[s] != 0.f ? frag_load<VEC>(py[s] + col) : u;
 #pragma unroll
-      for (int s = 0; s < BATCH; ++s) acc[s] = frag_sq<VEC>(acc[s], u, y[s]);
+      for (int s = 0; s < BATCH; ++s) sq[s] = frag_sq<VEC>(sq[s], u, y[s]);
     }
 #pragma unroll
-    for (int s = 0; s < BATCH; ++s) acc[s] = group_sum<G>(acc[s]);
-    // lane l weighs slots l, l + G, ...: the powf of a batch side by side
+    for (int s = 0; s < BATCH; ++s) sq[s] = group_sum<G>(sq[s]);
+    // lane l takes slots l, l + G, ...: the powf of a batch side by side
     float wl[NS];
 #pragma unroll
     for (int q = 0; q < NS; ++q) {
       const int s = q * G + lane;
-      const float sq = pick(acc, s), cs = pick(c, s);
-      wl[q] = cs != 0.f && sq >= CLAMP ? g0 * cs * attr_dfds(sq, a, b) : 0.f;
-      if (live && s < BATCH && m0 + s < k) w[i * k + m0 + s] = wl[q];
+      const float cs = pick(c, s);  // 0 past the batch and past k
+      wl[q] = cs != 0.f ? attr_pair<GRAD>(acc, cs, pick(sq, s), a, b) : 0.f;
+      if (GRAD && live && s < BATCH && m0 + s < k) w[i * k + m0 + s] = wl[q];
     }
-    float wt[BATCH];
-#pragma unroll
-    for (int s = 0; s < BATCH; ++s)
-      wt[s] = __shfl_sync(FULL, wl[s / G], s % G, G);
-    // anchor part: += w (x_i - x_nbr)
-    if (one_tile) {
+    if constexpr (GRAD) {
+      float wt[BATCH];
 #pragma unroll
       for (int s = 0; s < BATCH; ++s)
-        if (wt[s] != 0.f) frag_axpy<VEC>(ga, wt[s], u, y[s]);
-    } else if (live) {  // summed in the output row (each lane its columns)
-      for (int col = col1; col < D; col += G * VEC) {
-        const Frag<VEC> uc = frag_load<VEC>(xi + col);
-        Frag<VEC> g = m0 == 0 ? frag_zero<VEC>() : frag_load_own<VEC>(gi + col);
+        wt[s] = __shfl_sync(FULL, wl[s / G], s % G, G);
+      // anchor part: += w (x_i - x_nbr)
+      if (one_tile) {
 #pragma unroll
         for (int s = 0; s < BATCH; ++s)
-          if (wt[s] != 0.f)
-            frag_axpy<VEC>(g, wt[s], uc, frag_load<VEC>(py[s] + col));
-        frag_store<VEC>(gi + col, g);
+          if (wt[s] != 0.f) frag_axpy<VEC>(ga, wt[s], u, y[s]);
+      } else if (live) {  // summed in the output row (each lane its columns)
+        for (int col = col1; col < D; col += G * VEC) {
+          const Frag<VEC> uc = frag_load<VEC>(xi + col);
+          Frag<VEC> g =
+              m0 == 0 ? frag_zero<VEC>() : frag_load_own<VEC>(gi + col);
+#pragma unroll
+          for (int s = 0; s < BATCH; ++s)
+            if (wt[s] != 0.f)
+              frag_axpy<VEC>(g, wt[s], uc, frag_load<VEC>(py[s] + col));
+          frag_store<VEC>(gi + col, g);
+        }
       }
     }
   }
-  if (one_tile && live && col1 < D) frag_store<VEC>(gi + col1, ga);
+  acc = group_sum<G>(acc);
+  if (live && lane == 0) partial[i] = acc;
+  if (GRAD && one_tile && live && col1 < D) frag_store<VEC>(gi + col1, ga);
 }
 
 // The attraction backward's gather pass over the work list, the in-edge
 // part, -= w (x_anchor - x_t) in CSR order: items [0, N) are the rows
-// with at most C = chunk in-edges (each ends its gradient row, the
-// anchor part the edge pass wrote there for a row in the range; a longer
-// row's item does nothing), items N + q the chunks q of the longer rows
-// (each writes partial row q). Chunk q belongs to row multi_row[r],
+// with at most C = chunk in-edges (each ends its gradient row: g times
+// the anchor part the forward wrote there for a row in the range, 0
+// outside it, plus the in-edges; a longer row's item does nothing), items
+// N + q the chunks q of the longer rows (each writes partial row q, at
+// g = 1). Chunk q belongs to row multi_row[r],
 // r = chunk_multi[q], is that row's chunk j = q - multi_first[r] and
 // takes its in-edges [off + j C, off + (j+1) C). The plan is cut by the
 // same C (ops/layout_terms.py's CHUNK_EDGES, passed at launch).
@@ -399,6 +367,7 @@ template <int G, int VEC>
 __global__ void __launch_bounds__(BLOCK)
     fit_attr_bwd_kernel(const float* __restrict__ x,
                         const float* __restrict__ w,
+                        const float* __restrict__ grad_out,
                         const int32_t* __restrict__ rev_order,
                         const int32_t* __restrict__ rev_offsets,
                         const int32_t* __restrict__ multi_row,
@@ -414,6 +383,7 @@ __global__ void __launch_bounds__(BLOCK)
   int32_t p0, p1;
   float* out;
   bool anchor;  // out holds the row's anchor part
+  float g = 1.f;  // the loss's gradient, applied where a row ends
   if (item < N) {
     t = item;
     p0 = rev_offsets[t];
@@ -421,6 +391,7 @@ __global__ void __launch_bounds__(BLOCK)
     if (p1 - p0 > chunk) return;  // its chunks follow
     out = grad + t * D;
     anchor = t >= row0 && t - row0 < n_rows;
+    g = *grad_out;
   } else {
     const int q = (int)(item - N);
     const int r = chunk_multi[q];
@@ -455,18 +426,21 @@ __global__ void __launch_bounds__(BLOCK)
       for (int s = 0; s < BATCH; ++s)
         if (wt[s] != 0.f) frag_axpy<VEC>(acc, -wt[s], y[s], xt);
     }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc.v[j] *= g;
     if (on) frag_store<VEC>(out + col, acc);
   }
 }
 
 // The attraction backward's finishing pass: gradient row t = multi_row[r]
-// is its anchor part (0 outside the row range) plus its chunks' partial
-// rows [multi_first[r], multi_first[r+1]), in chunk order.
+// is g times its anchor part (0 outside the row range) plus its chunks'
+// partial rows [multi_first[r], multi_first[r+1]), in chunk order.
 template <int G, int VEC>
 __global__ void __launch_bounds__(BLOCK)
     fit_attr_bwd_finish_kernel(const float* __restrict__ partial,
                                const int32_t* __restrict__ multi_row,
                                const int32_t* __restrict__ multi_first,
+                               const float* __restrict__ grad_out,
                                float* __restrict__ grad, int n_multi,
                                int n_rows, int D, int64_t row0) {
   const int lane = threadIdx.x % G;
@@ -476,6 +450,7 @@ __global__ void __launch_bounds__(BLOCK)
   const int64_t t = multi_row[r];
   const bool anchor = t >= row0 && t - row0 < n_rows;
   float* out = grad + t * D;
+  const float g = *grad_out;
   for (int col = lane * VEC; col < D; col += G * VEC) {
     Frag<VEC> acc = anchor ? frag_load_own<VEC>(out + col) : frag_zero<VEC>();
 #pragma unroll 4
@@ -484,6 +459,8 @@ __global__ void __launch_bounds__(BLOCK)
 #pragma unroll
       for (int j = 0; j < VEC; ++j) acc.v[j] += p.v[j];
     }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc.v[j] *= g;
     frag_store<VEC>(out + col, acc);
   }
 }
@@ -510,14 +487,20 @@ __device__ __forceinline__ int64_t sub_mod(int64_t v, int64_t off, int64_t N) {
 
 // The repulsion forward: partial[il] = rep_coef[il] (sum_r psi(s_r) / R)
 // for anchor row0 + il against its R round negatives, 0 where rep_coef is
-// 0. A group of G lanes a row, as in the attraction forward.
-template <int G, int VEC>
+// 0 (no row read) and, with GRAD, the weights at g = 1, w[il R + r] =
+// 2 / R rep_coef[il] dpsids(s), 0 where rep_coef is 0 or s < 1e-6, and the
+// row's anchor part, grad[row0 + il] = sum_r w (x_i - x_neg) in round
+// order, from the rows just read (again, from L1: holding them across the
+// curve's divisions spilled registers). A group of G lanes a row, as in
+// the attraction forward.
+template <int G, int VEC, bool GRAD>
 __global__ void __launch_bounds__(BLOCK)
     fit_rep_fwd_kernel(const float* __restrict__ x,
                        const int64_t* __restrict__ pi,
                        const int64_t* __restrict__ rolls,
                        const float* __restrict__ rep_coef,
-                       float* __restrict__ partial, int64_t N, int n_rows,
+                       float* __restrict__ partial, float* __restrict__ w,
+                       float* __restrict__ grad, int64_t N, int n_rows,
                        int R, int D, int64_t row0, float a, float b) {
   extern __shared__ int64_t offs[];
   load_offsets(offs, rolls, R, N);
@@ -525,68 +508,15 @@ __global__ void __launch_bounds__(BLOCK)
   const int lane = threadIdx.x % G;
   const int64_t il = ((int64_t)blockIdx.x * BLOCK + threadIdx.x) / G;
   const bool live = il < n_rows;  // a group past the rows joins the shuffles
+  const float g0 = 2.f / (float)R;  // 2 g / R at g = 1
   const float c = live ? rep_coef[il] : 0.f;
   const int64_t i = row0 + (live ? il : 0);
   const float* xi = x + i * D;
-  const int col1 = lane * VEC;
-  const Frag<VEC> u1 = c != 0.f && D <= G * VEC && col1 < D
-                           ? frag_load<VEC>(xi + col1)
-                           : frag_zero<VEC>();
-  float acc = 0.f;  // this lane's terms
-  for (int r0 = 0; r0 < R; r0 += BATCH) {
-    float sq[BATCH];
-    int64_t id[BATCH];
-    bool on[BATCH];
-#pragma unroll
-    for (int s = 0; s < BATCH; ++s) {
-      on[s] = c != 0.f && r0 + s < R;
-      id[s] = on[s] ? pi[add_mod(i, offs[r0 + s], N)] : 0;
-      sq[s] = 0.f;
-    }
-    if (c != 0.f) lane_sq<G, VEC>(sq, x, xi, id, on, u1, col1, D);
-#pragma unroll
-    for (int s = 0; s < BATCH; ++s) sq[s] = group_sum<G>(sq[s]);
-#pragma unroll
-    for (int q = 0; q < NS; ++q) {
-      const int s = q * G + lane;
-      if (s < BATCH && r0 + s < R && c != 0.f)  // on[s], no runtime index
-        acc += rep_psi(clamped(pick(sq, s)), a, b);
-    }
-  }
-  acc = group_sum<G>(acc);
-  if (live && lane == 0) partial[il] = c * (acc / (float)R);
-}
-
-// The repulsion backward's edge pass: w[il R + r] = 2 g / R rep_coef[il]
-// dpsids(s) for anchor row0 + il against its round-r negative, 0 where
-// the coefficient is 0 (no row read) or s < 1e-6, and the row's anchor
-// part, grad[row0 + il] = sum_r w (x_i - x_neg) in round order, from the
-// rows just read (again, from L1). A group of G lanes an anchor row.
-template <int G, int VEC>
-__global__ void __launch_bounds__(BLOCK)
-    fit_rep_bwd_weights_kernel(const float* __restrict__ x,
-                               const int64_t* __restrict__ pi,
-                               const int64_t* __restrict__ rolls,
-                               const float* __restrict__ rep_coef,
-                               const float* __restrict__ grad_out,
-                               float* __restrict__ w,
-                               float* __restrict__ grad, int64_t N,
-                               int n_rows, int R, int D, int64_t row0,
-                               float a, float b) {
-  extern __shared__ int64_t offs[];
-  load_offsets(offs, rolls, R, N);
-  constexpr int NS = (BATCH + G - 1) / G;
-  const int lane = threadIdx.x % G;
-  const int64_t il = ((int64_t)blockIdx.x * BLOCK + threadIdx.x) / G;
-  const bool live = il < n_rows;  // a group past the rows joins the shuffles
-  const float g0 = 2.f * *grad_out / (float)R;
-  const float c = live ? rep_coef[il] : 0.f;
-  const int64_t i = row0 + (live ? il : 0);
-  const float* xi = x + i * D;
-  float* gi = grad + i * D;
+  float* gi = GRAD ? grad + i * D : nullptr;
   const bool one_tile = D <= G * VEC;
   const int col1 = lane * VEC;
   Frag<VEC> ga = frag_zero<VEC>();
+  float acc = 0.f;  // this lane's terms
   for (int r0 = 0; r0 < R; r0 += BATCH) {
     const float* py[BATCH];
     bool on[BATCH];
@@ -595,71 +525,78 @@ __global__ void __launch_bounds__(BLOCK)
       on[s] = c != 0.f && r0 + s < R;
       py[s] = on[s] ? x + pi[add_mod(i, offs[r0 + s], N)] * D : xi;
     }
-    float acc[BATCH];
-    Frag<VEC> u = frag_zero<VEC>(), y[BATCH];
+    float sq[BATCH];
 #pragma unroll
-    for (int s = 0; s < BATCH; ++s) {
-      acc[s] = 0.f;
-      y[s] = u;
+    for (int s = 0; s < BATCH; ++s) sq[s] = 0.f;
+    if (c != 0.f) {
+      for (int col = col1; col < D; col += G * VEC) {
+        const Frag<VEC> u = frag_load<VEC>(xi + col);
+        Frag<VEC> y[BATCH];
+#pragma unroll
+        for (int s = 0; s < BATCH; ++s)
+          y[s] = on[s] ? frag_load<VEC>(py[s] + col) : u;
+#pragma unroll
+        for (int s = 0; s < BATCH; ++s) sq[s] = frag_sq<VEC>(sq[s], u, y[s]);
+      }
     }
-    for (int col = col1; col < D; col += G * VEC) {
-      u = frag_load<VEC>(xi + col);
 #pragma unroll
-      for (int s = 0; s < BATCH; ++s)
-        y[s] = on[s] ? frag_load<VEC>(py[s] + col) : u;
-#pragma unroll
-      for (int s = 0; s < BATCH; ++s) acc[s] = frag_sq<VEC>(acc[s], u, y[s]);
-    }
-#pragma unroll
-    for (int s = 0; s < BATCH; ++s) acc[s] = group_sum<G>(acc[s]);
+    for (int s = 0; s < BATCH; ++s) sq[s] = group_sum<G>(sq[s]);
     float wl[NS];
 #pragma unroll
     for (int q = 0; q < NS; ++q) {
       const int s = q * G + lane;
-      const float sq = pick(acc, s);
-      wl[q] = c != 0.f && sq >= CLAMP ? g0 * c * rep_dpsids(sq, a, b) : 0.f;
-      if (live && s < BATCH && r0 + s < R) w[il * R + r0 + s] = wl[q];
+      const bool pair = s < BATCH && r0 + s < R && c != 0.f;  // on[s]
+      wl[q] = pair ? rep_pair<GRAD>(acc, g0 * c, pick(sq, s), a, b) : 0.f;
+      if (GRAD && live && s < BATCH && r0 + s < R) w[il * R + r0 + s] = wl[q];
     }
-    float wt[BATCH];
+    if constexpr (GRAD) {
+      float wt[BATCH];
 #pragma unroll
-    for (int s = 0; s < BATCH; ++s)
-      wt[s] = __shfl_sync(FULL, wl[s / G], s % G, G);
-    // anchor part: += w (x_i - x_neg), the rows read again (from L1)
-    if (one_tile) {
-      if (col1 < D) {
-        const Frag<VEC> uc = frag_load<VEC>(xi + col1);
+      for (int s = 0; s < BATCH; ++s)
+        wt[s] = __shfl_sync(FULL, wl[s / G], s % G, G);
+      // anchor part: += w (x_i - x_neg), the rows read again (from L1)
+      if (one_tile) {
+        if (col1 < D) {
+          const Frag<VEC> uc = frag_load<VEC>(xi + col1);
 #pragma unroll
-        for (int s = 0; s < BATCH; ++s)
-          if (wt[s] != 0.f)
-            frag_axpy<VEC>(ga, wt[s], uc, frag_load<VEC>(py[s] + col1));
-      }
-    } else if (live) {  // summed in the output row (each lane its columns)
-      for (int col = col1; col < D; col += G * VEC) {
-        const Frag<VEC> uc = frag_load<VEC>(xi + col);
-        Frag<VEC> g = r0 == 0 ? frag_zero<VEC>() : frag_load_own<VEC>(gi + col);
+          for (int s = 0; s < BATCH; ++s)
+            if (wt[s] != 0.f)
+              frag_axpy<VEC>(ga, wt[s], uc, frag_load<VEC>(py[s] + col1));
+        }
+      } else if (live) {  // summed in the output row (each lane its columns)
+        for (int col = col1; col < D; col += G * VEC) {
+          const Frag<VEC> uc = frag_load<VEC>(xi + col);
+          Frag<VEC> g =
+              r0 == 0 ? frag_zero<VEC>() : frag_load_own<VEC>(gi + col);
 #pragma unroll
-        for (int s = 0; s < BATCH; ++s)
-          if (wt[s] != 0.f)
-            frag_axpy<VEC>(g, wt[s], uc, frag_load<VEC>(py[s] + col));
-        frag_store<VEC>(gi + col, g);
+          for (int s = 0; s < BATCH; ++s)
+            if (wt[s] != 0.f)
+              frag_axpy<VEC>(g, wt[s], uc, frag_load<VEC>(py[s] + col));
+          frag_store<VEC>(gi + col, g);
+        }
       }
     }
   }
-  if (one_tile && live && col1 < D) frag_store<VEC>(gi + col1, ga);
+  acc = group_sum<G>(acc);
+  if (live && lane == 0) partial[il] = c * (acc / (float)R);
+  if (GRAD && one_tile && live && col1 < D) frag_store<VEC>(gi + col1, ga);
 }
 
 // The repulsion backward's gather pass, the negative part: a group of G
 // lanes an output row t, which is round r's negative of anchor
 // ia = (pi_inv[t] - off_r) mod N; where ia lies in the row range,
 // -= w (x_ia - x_t), summed over the rounds in order (BATCH rounds' loads
-// issued together) and added to t's anchor part (0 outside the range).
+// issued together), added to t's anchor part (0 outside the range) and
+// times g.
 template <int G, int VEC>
 __global__ void __launch_bounds__(BLOCK)
     fit_rep_bwd_kernel(const float* __restrict__ x,
                        const int64_t* __restrict__ pi_inv,
                        const int64_t* __restrict__ rolls,
-                       const float* __restrict__ w, float* __restrict__ grad,
-                       int64_t N, int n_rows, int R, int D, int64_t row0) {
+                       const float* __restrict__ w,
+                       const float* __restrict__ grad_out,
+                       float* __restrict__ grad, int64_t N, int n_rows, int R,
+                       int D, int64_t row0) {
   extern __shared__ int64_t offs[];
   load_offsets(offs, rolls, R, N);
   const int lane = threadIdx.x % G;
@@ -667,6 +604,7 @@ __global__ void __launch_bounds__(BLOCK)
   if (t >= N) return;
   const bool anchor = t >= row0 && t - row0 < n_rows;
   const int64_t jt = pi_inv[t];
+  const float g = *grad_out;
   const float* xt_row = x + t * D;
   float* out = grad + t * D;
   for (int col0 = 0; col0 < D; col0 += G * VEC) {
@@ -699,6 +637,8 @@ __global__ void __launch_bounds__(BLOCK)
 #pragma unroll
         for (int j = 0; j < VEC; ++j) acc.v[j] = ga.v[j] + acc.v[j];
       }
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc.v[j] *= g;
       frag_store<VEC>(out + col, acc);
     }
   }
@@ -747,49 +687,43 @@ inline size_t offsets_smem(int R) { return (size_t)R * sizeof(int64_t); }
 
 }  // namespace
 
+// The forwards: one partial a row and, given w and grad (both or
+// neither), the weights (n_rows * k or n_rows * R floats) and the anchor
+// rows of grad that the backward's gather ends; without them the
+// loss-only instance.
 extern "C" int fit_attr_fwd_launch(const void* x, const void* nbrs,
-                                   const void* coef, void* partial,
-                                   int n_rows, int k, int D, long long row0,
-                                   float a, float b, void* stream) {
-  if (n_rows <= 0 || k <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+                                   const void* coef, void* partial, void* w,
+                                   void* grad, int n_rows, int k, int D,
+                                   long long row0, float a, float b,
+                                   void* stream) {
+  if (n_rows <= 0 || k <= 0 || D <= 0 || (w == nullptr) != (grad == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int vec = vec_width(D, x);
+  const int vec = grad ? vec_width(D, x, grad, grad) : vec_width(D, x);
   const int G = group_lanes(D, vec);
-#define LAUNCH(G_, V_)                                                      \
-  fit_attr_fwd_kernel<G_, V_><<<group_blocks(n_rows, G_), BLOCK, 0, s>>>(   \
-      (const float*)x, (const int64_t*)nbrs, (const float*)coef,           \
-      (float*)partial, n_rows, k, D, (int64_t)row0, a, b)
+#define INSTANCE(G_, V_, GRAD_)                                              \
+  fit_attr_fwd_kernel<G_, V_, GRAD_><<<group_blocks(n_rows, G_), BLOCK, 0,   \
+                                       s>>>(                                 \
+      (const float*)x, (const int64_t*)nbrs, (const float*)coef,            \
+      (float*)partial, (float*)w, (float*)grad, n_rows, k, D, (int64_t)row0, \
+      a, b)
+#define LAUNCH(G_, V_)          \
+  if (grad)                     \
+    INSTANCE(G_, V_, true);     \
+  else                          \
+    INSTANCE(G_, V_, false)
   GROUP_DISPATCH(G, vec, LAUNCH)
 #undef LAUNCH
+#undef INSTANCE
   return (int)cudaGetLastError();
 }
 
-// The attraction's backward, three passes launched in this order:
-// the edge pass into w (n_rows * k floats) and the anchor rows of grad;
-// the gather over the N + n_chunks work items (partial: n_chunks x D
-// floats); the finishing pass over the n_multi rows of several chunks
-// (none to launch when n_multi is 0).
-extern "C" int fit_attr_bwd_weights_launch(
-    const void* x, const void* nbrs, const void* coef, const void* grad_out,
-    void* grad, void* w, int n_rows, int k, int D, long long row0, float a,
-    float b, void* stream) {
-  if (n_rows <= 0 || k <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int vec = vec_width(D, x, grad, grad);
-  const int G = group_lanes(D, vec);
-#define LAUNCH(G_, V_)                                                      \
-  fit_attr_bwd_weights_kernel<G_, V_><<<group_blocks(n_rows, G_), BLOCK, 0, \
-                                        s>>>(                               \
-      (const float*)x, (const int64_t*)nbrs, (const float*)coef,           \
-      (const float*)grad_out, (float*)w, (float*)grad, n_rows, k, D,       \
-      (int64_t)row0, a, b)
-  GROUP_DISPATCH(G, vec, LAUNCH)
-#undef LAUNCH
-  return (int)cudaGetLastError();
-}
-
+// The attraction's backward, launched in this order: the gather over the
+// N + n_chunks work items (partial: n_chunks x D floats); the finishing
+// pass over the n_multi rows of several chunks (none to launch when
+// n_multi is 0). grad_out: the loss's gradient, one float on the device.
 extern "C" int fit_attr_bwd_gather_launch(
-    const void* x, const void* w, const void* rev_order,
+    const void* x, const void* w, const void* grad_out, const void* rev_order,
     const void* rev_offsets, const void* multi_row, const void* multi_first,
     const void* chunk_multi, void* grad, void* partial, long long N,
     int n_chunks, int chunk, int n_rows, int k, int D, long long row0,
@@ -803,11 +737,11 @@ extern "C" int fit_attr_bwd_gather_launch(
 #define LAUNCH(G_, V_)                                                      \
   fit_attr_bwd_kernel<G_, V_><<<group_blocks(N + n_chunks, G_), BLOCK, 0,   \
                                 s>>>(                                       \
-      (const float*)x, (const float*)w, (const int32_t*)rev_order,         \
-      (const int32_t*)rev_offsets, (const int32_t*)multi_row,              \
-      (const int32_t*)multi_first, (const int32_t*)chunk_multi,            \
-      (float*)grad, (float*)partial, (int64_t)N, n_chunks, chunk, n_rows,  \
-      k, D, (int64_t)row0)
+      (const float*)x, (const float*)w, (const float*)grad_out,            \
+      (const int32_t*)rev_order, (const int32_t*)rev_offsets,              \
+      (const int32_t*)multi_row, (const int32_t*)multi_first,              \
+      (const int32_t*)chunk_multi, (float*)grad, (float*)partial,          \
+      (int64_t)N, n_chunks, chunk, n_rows, k, D, (int64_t)row0)
   GROUP_DISPATCH(G, vec, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
@@ -815,8 +749,8 @@ extern "C" int fit_attr_bwd_gather_launch(
 
 extern "C" int fit_attr_bwd_finish_launch(
     const void* partial, const void* multi_row, const void* multi_first,
-    void* grad, int n_multi, int n_rows, int D, long long row0,
-    void* stream) {
+    const void* grad_out, void* grad, int n_multi, int n_rows, int D,
+    long long row0, void* stream) {
   if (n_multi <= 0 || n_rows <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int vec = vec_width(D, partial, grad, grad);
@@ -825,8 +759,8 @@ extern "C" int fit_attr_bwd_finish_launch(
   fit_attr_bwd_finish_kernel<G_, V_><<<group_blocks(n_multi, G_), BLOCK, 0, \
                                        s>>>(                                \
       (const float*)partial, (const int32_t*)multi_row,                    \
-      (const int32_t*)multi_first, (float*)grad, n_multi, n_rows, D,       \
-      (int64_t)row0)
+      (const int32_t*)multi_first, (const float*)grad_out, (float*)grad,   \
+      n_multi, n_rows, D, (int64_t)row0)
   GROUP_DISPATCH(G, vec, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();
@@ -834,54 +768,39 @@ extern "C" int fit_attr_bwd_finish_launch(
 
 extern "C" int fit_rep_fwd_launch(const void* x, const void* pi,
                                   const void* rolls, const void* rep_coef,
-                                  void* partial, long long N, int n_rows,
-                                  int R, int D, long long row0, float a,
-                                  float b, void* stream) {
+                                  void* partial, void* w, void* grad,
+                                  long long N, int n_rows, int R, int D,
+                                  long long row0, float a, float b,
+                                  void* stream) {
   const size_t smem = offsets_smem(R);
-  if (N <= 0 || n_rows <= 0 || R <= 0 || D <= 0 || smem > 48 * 1024)
+  if (N <= 0 || n_rows <= 0 || R <= 0 || D <= 0 || smem > 48 * 1024 ||
+      (w == nullptr) != (grad == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int vec = vec_width(D, x);
+  const int vec = grad ? vec_width(D, x, grad, grad) : vec_width(D, x);
   const int G = group_lanes(D, vec);
-#define LAUNCH(G_, V_)                                                      \
-  fit_rep_fwd_kernel<G_, V_><<<group_blocks(n_rows, G_), BLOCK, smem, s>>>( \
-      (const float*)x, (const int64_t*)pi, (const int64_t*)rolls,          \
-      (const float*)rep_coef, (float*)partial, (int64_t)N, n_rows, R, D,   \
-      (int64_t)row0, a, b)
+#define INSTANCE(G_, V_, GRAD_)                                              \
+  fit_rep_fwd_kernel<G_, V_, GRAD_><<<group_blocks(n_rows, G_), BLOCK, smem, \
+                                      s>>>(                                  \
+      (const float*)x, (const int64_t*)pi, (const int64_t*)rolls,           \
+      (const float*)rep_coef, (float*)partial, (float*)w, (float*)grad,     \
+      (int64_t)N, n_rows, R, D, (int64_t)row0, a, b)
+#define LAUNCH(G_, V_)          \
+  if (grad)                     \
+    INSTANCE(G_, V_, true);     \
+  else                          \
+    INSTANCE(G_, V_, false)
   GROUP_DISPATCH(G, vec, LAUNCH)
 #undef LAUNCH
+#undef INSTANCE
   return (int)cudaGetLastError();
 }
 
-// The repulsion's backward, two passes launched in this order: the edge
-// pass into w (n_rows * R floats) and the anchor rows of grad, then the
-// gather over the N rows.
-
-extern "C" int fit_rep_bwd_weights_launch(
-    const void* x, const void* pi, const void* rolls, const void* rep_coef,
-    const void* grad_out, void* grad, void* w, long long N, int n_rows,
-    int R, int D, long long row0, float a, float b, void* stream) {
-  const size_t smem = offsets_smem(R);
-  if (N <= 0 || n_rows <= 0 || R <= 0 || D <= 0 || smem > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int vec = vec_width(D, x, grad, grad);
-  const int G = group_lanes(D, vec);
-#define LAUNCH(G_, V_)                                                     \
-  fit_rep_bwd_weights_kernel<G_, V_><<<group_blocks(n_rows, G_), BLOCK,    \
-                                       smem, s>>>(                         \
-      (const float*)x, (const int64_t*)pi, (const int64_t*)rolls,         \
-      (const float*)rep_coef, (const float*)grad_out, (float*)w,          \
-      (float*)grad, (int64_t)N, n_rows, R, D, (int64_t)row0, a, b)
-  GROUP_DISPATCH(G, vec, LAUNCH)
-#undef LAUNCH
-  return (int)cudaGetLastError();
-}
-
+// The repulsion's backward: the gather over the N rows.
 extern "C" int fit_rep_bwd_gather_launch(
     const void* x, const void* pi_inv, const void* rolls, const void* w,
-    void* grad, long long N, int n_rows, int R, int D, long long row0,
-    void* stream) {
+    const void* grad_out, void* grad, long long N, int n_rows, int R, int D,
+    long long row0, void* stream) {
   const size_t smem = offsets_smem(R);
   if (N <= 0 || n_rows <= 0 || R <= 0 || D <= 0 || smem > 48 * 1024)
     return (int)cudaErrorInvalidValue;
@@ -891,8 +810,8 @@ extern "C" int fit_rep_bwd_gather_launch(
 #define LAUNCH(G_, V_)                                                     \
   fit_rep_bwd_kernel<G_, V_><<<group_blocks(N, G_), BLOCK, smem, s>>>(     \
       (const float*)x, (const int64_t*)pi_inv, (const int64_t*)rolls,     \
-      (const float*)w, (float*)grad, (int64_t)N, n_rows, R, D,            \
-      (int64_t)row0)
+      (const float*)w, (const float*)grad_out, (float*)grad, (int64_t)N,  \
+      n_rows, R, D, (int64_t)row0)
   GROUP_DISPATCH(G, vec, LAUNCH)
 #undef LAUNCH
   return (int)cudaGetLastError();

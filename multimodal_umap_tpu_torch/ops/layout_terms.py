@@ -9,17 +9,19 @@ bound), built in the same ``nvcc`` call as the kNN tile kernel
 (``knn_tile.build``) and bound with ``ctypes``. This module keeps:
 
 * :func:`fit_attraction` / :func:`fit_repulsion` -- the wrappers, each a
-  ``torch.autograd.Function`` on CUDA tensors (a forward kernel; a
-  backward of an edge pass that computes each pair's weight once and its
-  anchor's part of the gradient, and a gather that ends every output row,
-  or writes a hub chunk's partial row, with one owner each, then for the
-  attraction a pass summing the partials in a fixed order: no atomics).
-  A CPU tensor takes the plain version; a CUDA tensor launches the
-  kernels or raises (never a fallback). Launch counts:
-  ``FIT_ATTR_LAUNCHES`` / ``FIT_REP_LAUNCHES`` (forward kernel),
-  ``FIT_ATTR_BWD_LAUNCHES`` / ``FIT_REP_BWD_LAUNCHES`` (the backward's
-  gather, one a call) and ``BWD_PASS_LAUNCHES`` (each backward kernel by
-  name: the edge passes, the gathers, the attraction's finishing pass);
+  ``torch.autograd.Function`` on CUDA tensors (a forward kernel that,
+  where the gradient is wanted, also computes each pair's weight once and
+  its anchor's part of the gradient, both saved for the backward; a
+  backward of a gather that ends every output row, or writes a hub
+  chunk's partial row, with one owner each, then for the attraction a
+  pass summing the partials in a fixed order: no atomics). A CPU tensor
+  takes the plain version; a CUDA tensor launches the kernels or raises
+  (never a fallback). Launch counts: ``FWD_LAUNCHES`` (each term's
+  forwards that saved the backward's weights and anchor part,
+  ``with_grad``, and those that computed the loss alone, ``loss_only``),
+  ``FIT_ATTR_BWD_LAUNCHES`` / ``FIT_REP_BWD_LAUNCHES`` (backward calls)
+  and ``BWD_PASS_LAUNCHES`` (each backward kernel by name: the gathers,
+  the attraction's finishing pass);
 * :func:`fit_attraction_plain` / :func:`fit_repulsion_plain` -- the terms
   as autodiff PyTorch (the single-device and sharded engines' own code:
   the attraction's slot scan with recompute past ``slot_bytes``, the
@@ -27,10 +29,12 @@ bound), built in the same ``nvcc`` call as the kNN tile kernel
 * :func:`reverse_index` -- the transposed index of the neighbour ids (a
   CSR) and its chunk plan (:func:`attr_work_items`), which the
   attraction's backward reads, built once with the fit task;
-* :func:`_attr_grad_gather` / :func:`_rep_grad_gather` -- the kernels'
-  backward in the kernels' own form and index arithmetic (weights and
-  anchor parts once, then the gather over the work items), in PyTorch, so
-  that the CPU tests reach it.
+* :func:`_attr_fwd_twin` / :func:`_rep_fwd_twin` and
+  :func:`_attr_grad_gather` / :func:`_rep_grad_gather` -- the kernels'
+  forward (loss, weights and anchor parts at once) and backward (the
+  gather over the work items, times the loss's gradient) in the kernels'
+  own form and index arithmetic, in PyTorch, so that the CPU tests reach
+  them.
 
 Every function takes the anchor rows ``[row0, row0 + n_rows)`` of the
 table it is given (``n_rows`` the rows of ``nbrs`` / ``rep_coef``): the
@@ -51,16 +55,15 @@ from . import losses as L
 from .scatter_free import dynamic_roll, dynamic_slice, permutation_gather
 
 # Launches of the CUDA kernels in this process (plain-version calls on
-# CPU tensors do not count): forward and backward (its gather) of each
-# term, and every backward kernel by name.
-FIT_ATTR_LAUNCHES = 0
+# CPU tensors do not count): each term's forwards by instance, its
+# backward calls, and every backward kernel by name.
+FWD_LAUNCHES = {"fit_attr": {"with_grad": 0, "loss_only": 0},
+                "fit_rep": {"with_grad": 0, "loss_only": 0}}
 FIT_ATTR_BWD_LAUNCHES = 0
-FIT_REP_LAUNCHES = 0
 FIT_REP_BWD_LAUNCHES = 0
-BWD_PASS_LAUNCHES = {
-    "fit_attr_bwd_weights_kernel": 0, "fit_attr_bwd_kernel": 0,
-    "fit_attr_bwd_finish_kernel": 0, "fit_rep_bwd_weights_kernel": 0,
-    "fit_rep_bwd_kernel": 0}
+BWD_PASS_LAUNCHES = {"fit_attr_bwd_kernel": 0,
+                     "fit_attr_bwd_finish_kernel": 0,
+                     "fit_rep_bwd_kernel": 0}
 
 _CLAMP = 1e-6  # the squared-distance floor of losses.umap_attr / umap_rep
 
@@ -74,21 +77,15 @@ def _library() -> ctypes.CDLL:
         lib = KT.build()
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
-        lib.fit_attr_fwd_launch.argtypes = [p] * 4 + [i, i, i, ll, f, f, p]
-        lib.fit_attr_bwd_weights_launch.argtypes = [p] * 6 + [i, i, i, ll, f,
-                                                              f, p]
-        lib.fit_attr_bwd_gather_launch.argtypes = [p] * 9 + [ll, i, i, i, i,
-                                                             i, ll, p]
-        lib.fit_attr_bwd_finish_launch.argtypes = [p] * 4 + [i, i, i, ll, p]
-        lib.fit_rep_fwd_launch.argtypes = [p] * 5 + [ll, i, i, i, ll, f, f, p]
-        lib.fit_rep_bwd_weights_launch.argtypes = [p] * 7 + [ll, i, i, i, ll,
-                                                             f, f, p]
-        lib.fit_rep_bwd_gather_launch.argtypes = [p] * 5 + [ll, i, i, i, ll,
+        lib.fit_attr_fwd_launch.argtypes = [p] * 6 + [i, i, i, ll, f, f, p]
+        lib.fit_attr_bwd_gather_launch.argtypes = [p] * 10 + [ll, i, i, i, i,
+                                                              i, ll, p]
+        lib.fit_attr_bwd_finish_launch.argtypes = [p] * 5 + [i, i, i, ll, p]
+        lib.fit_rep_fwd_launch.argtypes = [p] * 7 + [ll, i, i, i, ll, f, f, p]
+        lib.fit_rep_bwd_gather_launch.argtypes = [p] * 6 + [ll, i, i, i, ll,
                                                             p]
-        for fn in (lib.fit_attr_fwd_launch, lib.fit_attr_bwd_weights_launch,
-                   lib.fit_attr_bwd_gather_launch,
+        for fn in (lib.fit_attr_fwd_launch, lib.fit_attr_bwd_gather_launch,
                    lib.fit_attr_bwd_finish_launch, lib.fit_rep_fwd_launch,
-                   lib.fit_rep_bwd_weights_launch,
                    lib.fit_rep_bwd_gather_launch):
             fn.restype = ctypes.c_int
         _lib = lib
@@ -229,7 +226,7 @@ def fit_repulsion_plain(embed, pi, pi_inv, rolls, rep_coef, a, b, *,
     return (rep_coef * (rep_sum / num_rep)).sum()
 
 
-# --- the kernels' backward in their gather form, in PyTorch ------------------
+# --- the kernels' forward and backward in their own form, in PyTorch -------
 
 def _attr_dfds(s, a, b):
     return a * b * s ** (b - 1.0) / (1.0 + a * s ** b)
@@ -241,30 +238,33 @@ def _rep_dpsids(s, a, b):
     return -(a * b * s ** (b - 1.0)) / ((q + 1e-6) * (1.0 + u) ** 2)
 
 
-def _attr_weights(embed, nbrs, coef, grad_out, a, b, row0: int = 0):
-    """The attraction backward's edge pass: one weight a slot, (n_rows *
-    k,): 2 g coef dfds(s), 0 where coef is 0 or s < 1e-6; and the anchor
-    rows' part of the gradient, (n_rows, D): sum_m w (x_i - x_nbr)."""
+def _attr_fwd_twin(embed, nbrs, coef, a, b, row0: int = 0):
+    """The attraction forward kernel where the gradient is wanted: the
+    loss (one partial a row, summed); one weight a slot at g = 1,
+    (n_rows * k,): 2 coef dfds(s), 0 where coef is 0 or s < 1e-6; and the
+    anchor rows' part of the gradient, (n_rows, D): sum_m w (x_i -
+    x_nbr)."""
     n_rows = nbrs.shape[0]
     delta = embed[row0:row0 + n_rows, None, :] - embed[nbrs]  # anchor - nbr
     sq = (delta * delta).sum(-1)
-    w = torch.where((coef != 0) & (sq >= _CLAMP),
-                    2.0 * grad_out * coef * _attr_dfds(sq.clamp_min(_CLAMP),
-                                                       a, b), 0.0)
-    return w.reshape(-1), (w[..., None] * delta).sum(1)
+    s = sq.clamp_min(_CLAMP)
+    live = coef != 0
+    partial = torch.where(live, coef * torch.log1p(a * s ** b), 0.0).sum(1)
+    w = torch.where(live & (sq >= _CLAMP), 2.0 * coef * _attr_dfds(s, a, b),
+                    0.0)
+    return partial.sum(), w.reshape(-1), (w[..., None] * delta).sum(1)
 
 
-def _attr_grad_gather(embed, nbrs, coef, rev: ReverseIndex, grad_out, a, b,
+def _attr_grad_gather(embed, w, anchor_part, rev: ReverseIndex, grad_out,
                       row0: int = 0) -> torch.Tensor:
-    """The gradient of :func:`fit_attraction_plain` as the backward
-    kernels form it: the weights once and the anchor rows' part
-    (:func:`_attr_weights`); then each work item of
+    """The attraction backward kernels, from the forward's weights ``w``
+    and ``anchor_part`` (:func:`_attr_fwd_twin`): each work item of
     :func:`attr_work_items` subtracts its in-edges, w (x_anchor - x_t) in
     CSR order, from its row's anchor part (a whole row) or from 0 (a
     chunk); a row of several chunks is its anchor part plus its partials
-    in chunk order."""
-    n_rows, k = nbrs.shape
-    w, anchor_part = _attr_weights(embed, nbrs, coef, grad_out, a, b, row0)
+    in chunk order; each row ends times ``grad_out``."""
+    n_rows = anchor_part.shape[0]
+    k = w.shape[0] // n_rows
     grad = torch.zeros_like(embed)
     grad[row0:row0 + n_rows] = anchor_part
     it = attr_work_items(rev)
@@ -288,42 +288,44 @@ def _attr_grad_gather(embed, nbrs, coef, rev: ReverseIndex, grad_out, a, b,
         grad[multi] = grad[multi] + (
             partial[q.clamp_max(partial.shape[0] - 1)]
             * inside[..., None]).sum(1)
-    return grad
+    return grad * grad_out
 
 
-def _rep_weights(embed, pi, rolls, rep_coef, grad_out, a, b, row0: int = 0):
-    """The repulsion backward's edge pass: one weight an (anchor, round),
-    (n_rows, R): 2 g / R rep_coef dpsids(s), 0 where rep_coef is 0 or
+def _rep_fwd_twin(embed, pi, rolls, rep_coef, a, b, row0: int = 0):
+    """The repulsion forward kernel where the gradient is wanted: the loss
+    (one partial a row, summed); one weight an (anchor, round) at g = 1,
+    (n_rows, R): 2 / R rep_coef dpsids(s), 0 where rep_coef is 0 or
     s < 1e-6; and the anchor rows' part of the gradient, (n_rows, D):
     sum_r w (x_i - x_{pi[(i + off_r) % N]})."""
-    n, n_rows = embed.shape[0], rep_coef.shape[0]
+    n, n_rows, r = embed.shape[0], rep_coef.shape[0], rolls.shape[0]
     rows = torch.arange(n_rows, device=embed.device) + row0
     delta = embed[rows][:, None, :] - embed[pi[(rows[:, None] + rolls) % n]]
     sq = (delta * delta).sum(-1)
+    s = sq.clamp_min(_CLAMP)
+    u = a * s ** b
     c = rep_coef[:, None]
+    psi = torch.where(c != 0, -torch.log(u / (1.0 + u) + 1e-6), 0.0)
+    partial = rep_coef * (psi.sum(1) / r)
     w = torch.where((c != 0) & (sq >= _CLAMP),
-                    2.0 * grad_out / rolls.shape[0] * c
-                    * _rep_dpsids(sq.clamp_min(_CLAMP), a, b), 0.0)
-    return w, (w[..., None] * delta).sum(1)
+                    2.0 / r * c * _rep_dpsids(s, a, b), 0.0)
+    return partial.sum(), w, (w[..., None] * delta).sum(1)
 
 
-def _rep_grad_gather(embed, pi, pi_inv, rolls, rep_coef, grad_out, a, b,
+def _rep_grad_gather(embed, pi_inv, rolls, w, anchor_part, grad_out,
                      row0: int = 0) -> torch.Tensor:
-    """The gradient of :func:`fit_repulsion_plain` as the backward kernels
-    form it: the weights once and the anchor rows' part
-    (:func:`_rep_weights`), plus each row's negative part: t is round r's
-    negative of anchor (pi_inv[t] - off_r) mod N, -= w (x_anchor - x_t),
-    when that anchor lies in the row range."""
-    n, n_rows = embed.shape[0], rep_coef.shape[0]
-    w, anchor_part = _rep_weights(embed, pi, rolls, rep_coef, grad_out, a,
-                                  b, row0)
+    """The repulsion backward kernel, from the forward's weights ``w``
+    and ``anchor_part`` (:func:`_rep_fwd_twin`): each row's negative
+    part, t is round r's negative of anchor (pi_inv[t] - off_r) mod N,
+    -= w (x_anchor - x_t) when that anchor lies in the row range, added
+    to its anchor part and times ``grad_out``."""
+    n, n_rows = embed.shape[0], w.shape[0]
     ia = (pi_inv[:, None] - rolls) % n  # the anchor whose negative t is
     local = ia - row0
     inside = (local >= 0) & (local < n_rows)
     w_neg = torch.where(inside, w.gather(0, local.clamp(0, n_rows - 1)), 0.0)
     grad = -(w_neg[..., None] * (embed[ia] - embed[:, None, :])).sum(1)
     grad[row0:row0 + n_rows] = anchor_part + grad[row0:row0 + n_rows]
-    return grad
+    return grad * grad_out
 
 
 # --- the wrappers -------------------------------------------------------------
@@ -356,6 +358,16 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _wants_grad(embed) -> bool:
+    """Whether a term's forward saves its backward's weights and anchor
+    part: only where autograd will call the backward."""
+    return torch.is_grad_enabled() and embed.requires_grad
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -367,107 +379,116 @@ def _launch_pass(entry: str, kernel: str, *args) -> None:
     BWD_PASS_LAUNCHES[kernel] += 1
 
 
+def _forward_buffers(embed, n_rows: int, pairs: int, with_grad: bool):
+    """(partial, w, grad): one f32 partial a row; where the gradient is
+    wanted, the weights of the ``pairs`` pairs and the gradient table
+    whose anchor rows the forward writes and whose every row the
+    backward's gather ends, both kept with ``save_for_backward`` (so that
+    a recomputed forward remakes them); else None and None."""
+    partial = torch.empty(n_rows, dtype=torch.float32, device=embed.device)
+    if not with_grad:
+        return partial, None, None
+    return (partial, torch.empty(pairs, dtype=torch.float32,
+                                 device=embed.device),
+            torch.empty_like(embed))
+
+
+def _saved_grad(ctx):
+    """The forward's saved tensors, its gradient table marked as changed
+    in place: the gather ends it there, so that a second backward through
+    the same graph raises instead of reading it again."""
+    saved = ctx.saved_tensors
+    torch.autograd.graph.increment_version(saved[2])
+    return saved
+
+
 class _FitAttraction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, embed, nbrs, coef, order, offsets, multi_row,
-                multi_first, chunk_multi, a, b, row0):
-        global FIT_ATTR_LAUNCHES
+                multi_first, chunk_multi, a, b, row0, with_grad):
         n_rows, k = nbrs.shape
-        partial = torch.empty(n_rows, dtype=torch.float32,
-                              device=embed.device)
+        partial, w, grad = _forward_buffers(embed, n_rows, n_rows * k,
+                                            with_grad)
         with torch.cuda.device(embed.device):
             err = _library().fit_attr_fwd_launch(
                 embed.data_ptr(), nbrs.data_ptr(), coef.data_ptr(),
-                partial.data_ptr(), n_rows, k, embed.shape[1], row0, a, b,
-                _stream(embed))
+                partial.data_ptr(), _ptr(w), _ptr(grad), n_rows, k,
+                embed.shape[1], row0, a, b, _stream(embed))
         _raise_on(err, "fit_attr_fwd")
-        FIT_ATTR_LAUNCHES += 1
-        ctx.save_for_backward(embed, nbrs, coef, order, offsets, multi_row,
-                              multi_first, chunk_multi)
-        ctx.consts = (a, b, row0)
+        FWD_LAUNCHES["fit_attr"]["with_grad" if with_grad else
+                                 "loss_only"] += 1
+        if with_grad:
+            ctx.save_for_backward(embed, w, grad, order, offsets, multi_row,
+                                  multi_first, chunk_multi)
+            ctx.consts = (n_rows, k, row0)
         return partial.sum()
 
     @staticmethod
     def backward(ctx, grad_out):
         global FIT_ATTR_BWD_LAUNCHES
-        (embed, nbrs, coef, order, offsets, multi_row, multi_first,
-         chunk_multi) = ctx.saved_tensors
-        a, b, row0 = ctx.consts
-        n_rows, k = nbrs.shape
+        (embed, w, grad, order, offsets, multi_row, multi_first,
+         chunk_multi) = _saved_grad(ctx)
+        n_rows, k, row0 = ctx.consts
         n, d = embed.shape
         g = grad_out.to(torch.float32).contiguous()
-        grad = torch.empty_like(embed)
-        # scratch: the edge pass's weights, the hub chunks' partial rows
-        w = torch.empty(n_rows * k, dtype=torch.float32, device=embed.device)
+        # scratch: the hub chunks' partial rows
         partial = torch.empty(chunk_multi.shape[0], d, dtype=torch.float32,
                               device=embed.device)
         s = _stream(embed)
         with torch.cuda.device(embed.device):
-            _launch_pass("fit_attr_bwd_weights_launch",
-                         "fit_attr_bwd_weights_kernel", embed.data_ptr(),
-                         nbrs.data_ptr(), coef.data_ptr(), g.data_ptr(),
-                         grad.data_ptr(), w.data_ptr(), n_rows, k, d, row0, a,
-                         b, s)
             _launch_pass("fit_attr_bwd_gather_launch", "fit_attr_bwd_kernel",
-                         embed.data_ptr(), w.data_ptr(), order.data_ptr(),
-                         offsets.data_ptr(), multi_row.data_ptr(),
-                         multi_first.data_ptr(), chunk_multi.data_ptr(),
-                         grad.data_ptr(), partial.data_ptr(), n,
-                         chunk_multi.shape[0], CHUNK_EDGES, n_rows, k, d,
-                         row0, s)
+                         embed.data_ptr(), w.data_ptr(), g.data_ptr(),
+                         order.data_ptr(), offsets.data_ptr(),
+                         multi_row.data_ptr(), multi_first.data_ptr(),
+                         chunk_multi.data_ptr(), grad.data_ptr(),
+                         partial.data_ptr(), n, chunk_multi.shape[0],
+                         CHUNK_EDGES, n_rows, k, d, row0, s)
             FIT_ATTR_BWD_LAUNCHES += 1
             if multi_row.shape[0] > 0:  # rows of several chunks
                 _launch_pass("fit_attr_bwd_finish_launch",
                              "fit_attr_bwd_finish_kernel", partial.data_ptr(),
                              multi_row.data_ptr(), multi_first.data_ptr(),
-                             grad.data_ptr(), multi_row.shape[0], n_rows, d,
-                             row0, s)
-        return (grad,) + (None,) * 10
+                             g.data_ptr(), grad.data_ptr(),
+                             multi_row.shape[0], n_rows, d, row0, s)
+        return (grad,) + (None,) * 11
 
 
 class _FitRepulsion(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, embed, pi, pi_inv, rolls, rep_coef, a, b, row0):
-        global FIT_REP_LAUNCHES
-        n_rows = rep_coef.shape[0]
-        partial = torch.empty(n_rows, dtype=torch.float32,
-                              device=embed.device)
+    def forward(ctx, embed, pi, pi_inv, rolls, rep_coef, a, b, row0,
+                with_grad):
+        n_rows, r = rep_coef.shape[0], rolls.shape[0]
+        partial, w, grad = _forward_buffers(embed, n_rows, n_rows * r,
+                                            with_grad)
         with torch.cuda.device(embed.device):
             err = _library().fit_rep_fwd_launch(
                 embed.data_ptr(), pi.data_ptr(), rolls.data_ptr(),
-                rep_coef.data_ptr(), partial.data_ptr(), embed.shape[0],
-                n_rows, rolls.shape[0], embed.shape[1], row0, a, b,
+                rep_coef.data_ptr(), partial.data_ptr(), _ptr(w), _ptr(grad),
+                embed.shape[0], n_rows, r, embed.shape[1], row0, a, b,
                 _stream(embed))
         _raise_on(err, "fit_rep_fwd")
-        FIT_REP_LAUNCHES += 1
-        ctx.save_for_backward(embed, pi, pi_inv, rolls, rep_coef)
-        ctx.consts = (a, b, row0)
+        FWD_LAUNCHES["fit_rep"]["with_grad" if with_grad else
+                                "loss_only"] += 1
+        if with_grad:
+            ctx.save_for_backward(embed, w, grad, pi_inv, rolls)
+            ctx.consts = (n_rows, row0)
         return partial.sum()
 
     @staticmethod
     def backward(ctx, grad_out):
         global FIT_REP_BWD_LAUNCHES
-        embed, pi, pi_inv, rolls, rep_coef = ctx.saved_tensors
-        a, b, row0 = ctx.consts
+        embed, w, grad, pi_inv, rolls = _saved_grad(ctx)
+        n_rows, row0 = ctx.consts
         n, d = embed.shape
-        n_rows, r = rep_coef.shape[0], rolls.shape[0]
         g = grad_out.to(torch.float32).contiguous()
-        grad = torch.empty_like(embed)
-        # scratch: the edge pass's weights
-        w = torch.empty(n_rows * r, dtype=torch.float32, device=embed.device)
-        s = _stream(embed)
         with torch.cuda.device(embed.device):
-            _launch_pass("fit_rep_bwd_weights_launch",
-                         "fit_rep_bwd_weights_kernel", embed.data_ptr(),
-                         pi.data_ptr(), rolls.data_ptr(), rep_coef.data_ptr(),
-                         g.data_ptr(), grad.data_ptr(), w.data_ptr(), n,
-                         n_rows, r, d, row0, a, b, s)
             _launch_pass("fit_rep_bwd_gather_launch", "fit_rep_bwd_kernel",
                          embed.data_ptr(), pi_inv.data_ptr(),
-                         rolls.data_ptr(), w.data_ptr(), grad.data_ptr(), n,
-                         n_rows, r, d, row0, s)
+                         rolls.data_ptr(), w.data_ptr(), g.data_ptr(),
+                         grad.data_ptr(), n, n_rows, rolls.shape[0], d, row0,
+                         _stream(embed))
             FIT_REP_BWD_LAUNCHES += 1
-        return grad, None, None, None, None, None, None, None
+        return (grad,) + (None,) * 8
 
 
 def fit_attraction(embed, nbrs, coef, a, b, *, row0: int = 0,
@@ -498,7 +519,7 @@ def fit_attraction(embed, nbrs, coef, a, b, *, row0: int = 0,
         raise ValueError("rev is not the reverse index of nbrs over the "
                          f"{n} rows")
     return _FitAttraction.apply(embed, nbrs, coef, *rev, float(a), float(b),
-                                int(row0))
+                                int(row0), _wants_grad(embed))
 
 
 def fit_repulsion(embed, pi, pi_inv, rolls, rep_coef, a, b, *,
@@ -525,4 +546,4 @@ def fit_repulsion(embed, pi, pi_inv, rolls, rep_coef, a, b, *,
                 rep_coef.shape[0], row0, a, b,
                 rep_coef=(rep_coef, torch.float32))
     return _FitRepulsion.apply(embed, pi, pi_inv, rolls, rep_coef, float(a),
-                               float(b), int(row0))
+                               float(b), int(row0), _wants_grad(embed))

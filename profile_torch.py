@@ -44,7 +44,8 @@ import time
 import torch
 
 # The fit terms' passes (csrc/layout_terms.cu) by name prefix: a
-# backward's prefix covers its edge, gather and finishing kernels.
+# forward's (loss, weights and anchor parts) and a backward's (its gather
+# and finishing kernels).
 TERM_KERNELS = ("fit_attr_fwd", "fit_attr_bwd", "fit_rep_fwd", "fit_rep_bwd")
 
 

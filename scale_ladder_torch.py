@@ -327,7 +327,10 @@ def run_rung(n: int, device=None) -> tuple[dict, dict]:
     ]
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    attr_before = LT.FIT_ATTR_LAUNCHES
+    def attr_launches():  # the attraction forward kernel, either instance
+        return sum(LT.FWD_LAUNCHES["fit_attr"].values())
+
+    attr_before = attr_launches()
     t0 = time.perf_counter()
     with patched([(KT, "knn_tile", observe)]):
         with patched(fit_patches):
@@ -337,7 +340,7 @@ def run_rung(n: int, device=None) -> tuple[dict, dict]:
         sync()
         seconds["fit"] = time.perf_counter() - t0
         fit_peak = torch.cuda.max_memory_allocated() - base
-        fit_attr_launches = LT.FIT_ATTR_LAUNCHES - attr_before
+        fit_attr_launches = attr_launches() - attr_before
         path[0] = "eval"
         t0 = time.perf_counter()
         cosine = similarity_test(test, cfg, model, return_values=True,

@@ -4,21 +4,23 @@
 On the CPU: the transposed index (CSR) of the neighbour ids and the
 attraction backward's chunk plan over it (hubs at C, C + 1 and several C
 in-edges, rows without in-edges, row ranges with hubs outside them, the
-sharded engine's rows); the kernels' backward (weights once, then the
-gather over the plan's work items), written in PyTorch with the kernels'
-index arithmetic, against autograd of the plain terms; the plain and gather
-forms against the JAX package's ``_fit_modality_loss(part="attr" /
-"rep")`` on JAX's replayed draws; a CPU tensor taking the plain version;
-the sharded engine calling the same two functions as the single-device
-one. On the card (``cuda`` marker; JAX is imported only by the tests
-that compare with it, so on a GPU machine without JAX this runs as
-``python -m pytest --noconftest tests/test_torch_layout_terms.py -m
-cuda``): the kernels against the plain versions, bit-reproducible over
-two runs, a captured replay equal to the eager call, and no CUDA tensor
-reaching the plain version.
+sharded engine's rows); the kernels' forward (loss, weights and anchor
+parts at once) and backward (the gather over the plan's work items, times
+the loss's gradient), written in PyTorch with the kernels' index
+arithmetic, against the plain terms and autograd of them; the plain and
+kernel forms against the JAX package's ``_fit_modality_loss(part="attr"
+/ "rep")`` on JAX's replayed draws; a CPU tensor taking the plain
+version; the sharded engine calling the same two functions as the
+single-device one. On the card (``cuda`` marker; JAX is imported only by
+the tests that compare with it, so on a GPU machine without JAX this
+runs as ``python -m pytest --noconftest tests/test_torch_layout_terms.py
+-m cuda``): the kernels against the plain versions at several gradients
+of the loss, bit-reproducible over two runs, a captured replay equal to
+the eager call, which forward instance and backward passes each call
+launches, and no CUDA tensor reaching the plain version.
 
 Tolerances, each with its reason:
-* gather form vs autograd, float64: rtol 1e-12, atol 1e-12 x max|grad|
+* kernel form vs autograd, float64: rtol 1e-12, atol 1e-12 x max|grad|
   (the same closed forms; the sums run in another order, and autograd
   differentiates the repulsion's quotient as 1/(1+u) - u/(1+u)^2 where
   the gather form takes 1/(1+u)^2);
@@ -125,6 +127,23 @@ def _autograd(term, embed, *args, g=0.37, **kw):
 TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-5)}
 
 C = LT.CHUNK_EDGES  # the most in-edges a work item of the backward takes
+
+
+def _attr_kernel_form(embed, nbrs, coef, rev, g, row0=0):
+    """(loss, gradient at ``g``) of the attraction as its kernels form
+    them: the forward twin, then the backward twin on its weights and
+    anchor part."""
+    loss, w, anchor = LT._attr_fwd_twin(embed, nbrs, coef, A, B, row0)
+    return loss, LT._attr_grad_gather(embed, w, anchor, rev, g, row0)
+
+
+def _rep_kernel_form(embed, pi, pi_inv, rolls, rep_coef, g, row0=0):
+    """(loss, gradient at ``g``) of the repulsion as its kernels form
+    them."""
+    loss, w, anchor = LT._rep_fwd_twin(embed, pi, rolls, rep_coef, A, B,
+                                       row0)
+    return loss, LT._rep_grad_gather(embed, pi_inv, rolls, w, anchor, g,
+                                     row0)
 
 ATTR_CASES = {  # n, n_rows, row0, k, d, hub, dups
     "whole": (61, 61, 0, 6, 5, False, True),
@@ -255,9 +274,9 @@ def test_attr_gather_backward_is_autograd_sharded(dtype):
     embed, nbrs, coef, row0 = _sharded_rank1(dtype)
     _, want = _autograd(LT.fit_attraction_plain, embed, nbrs, coef, A, B,
                         row0=row0)
-    got = LT._attr_grad_gather(embed, nbrs, coef,
+    _, got = _attr_kernel_form(embed, nbrs, coef,
                                LT.reverse_index(nbrs, embed.shape[0]), 0.37,
-                               A, B, row0=row0)
+                               row0=row0)
     _close(got, want, *TOL[dtype])
 
 
@@ -270,8 +289,8 @@ def test_attr_gather_backward_is_autograd(case, dtype):
                                       hub=hub, dups=dups)
     _, want = _autograd(LT.fit_attraction_plain, embed, nbrs, coef, A, B,
                         row0=row0)
-    got = LT._attr_grad_gather(embed, nbrs, coef, LT.reverse_index(nbrs, n),
-                               0.37, A, B, row0=row0)
+    _, got = _attr_kernel_form(embed, nbrs, coef, LT.reverse_index(nbrs, n),
+                               0.37, row0=row0)
     _close(got, want, *TOL[dtype])
     if dups:  # the clamped pair moves neither row
         j = int(nbrs[1, 0])
@@ -285,8 +304,54 @@ def test_rep_gather_backward_is_autograd(case, dtype):
     n, n_rows, row0, d, rolls = REP_CASES[case]
     args = _rep_problem(n, n_rows, row0, d, rolls, 2, dtype)
     _, want = _autograd(LT.fit_repulsion_plain, *args, A, B, row0=row0)
-    got = LT._rep_grad_gather(*args, 0.37, A, B, row0=row0)
+    _, got = _rep_kernel_form(*args, 0.37, row0=row0)
     _close(got, want, *TOL[dtype])
+
+
+@pytest.mark.parametrize("g", [1.0, 0.37])
+@pytest.mark.parametrize("case", list(ATTR_CASES))
+def test_attr_forward_twin_is_plain_and_autograd(case, g):
+    """The attraction's forward twin: its loss is the plain term's; its
+    weights vanish where the coefficient does or the pair is clamped; its
+    weights and anchor part, through the backward twin at ``g``, are
+    autograd's gradient of ``g`` times the loss (float64)."""
+    n, n_rows, row0, k, d, hub, dups = ATTR_CASES[case]
+    embed, nbrs, coef = _attr_problem(n, n_rows, row0, k, d, 5, hub=hub,
+                                      dups=dups)
+    v_want, g_want = _autograd(LT.fit_attraction_plain, embed, nbrs, coef, A,
+                               B, row0=row0, g=g)
+    loss, w, anchor = LT._attr_fwd_twin(embed, nbrs, coef, A, B, row0)
+    _close(loss, v_want, *TOL[torch.float64])
+    assert w.shape == (n_rows * k,) and anchor.shape == (n_rows, d)
+    assert bool((w.reshape(n_rows, k)[coef == 0] == 0).all())
+    if dups:  # anchor row0 + 1 sits on its slot-0 neighbour: clamped
+        assert float(w[k]) == 0.0
+    got = LT._attr_grad_gather(embed, w, anchor, LT.reverse_index(nbrs, n), g,
+                               row0)
+    _close(got, g_want, *TOL[torch.float64])
+
+
+@pytest.mark.parametrize("g", [1.0, 0.37])
+@pytest.mark.parametrize("case", list(REP_CASES))
+def test_rep_forward_twin_is_plain_and_autograd(case, g):
+    """The repulsion's forward twin, as the attraction's: the plain loss,
+    weights 0 where rep_coef is 0 or the pair is clamped (anchor row0 + 2,
+    its own negative at offset 0), and autograd's gradient through the
+    backward twin at ``g``."""
+    n, n_rows, row0, d, rolls = REP_CASES[case]
+    embed, pi, pi_inv, rolls_t, rep_coef = _rep_problem(n, n_rows, row0, d,
+                                                        rolls, 6)
+    v_want, g_want = _autograd(LT.fit_repulsion_plain, embed, pi, pi_inv,
+                               rolls_t, rep_coef, A, B, row0=row0, g=g)
+    loss, w, anchor = LT._rep_fwd_twin(embed, pi, rolls_t, rep_coef, A, B,
+                                       row0)
+    _close(loss, v_want, *TOL[torch.float64])
+    assert w.shape == (n_rows, len(rolls)) and anchor.shape == (n_rows, d)
+    assert bool((w[rep_coef == 0] == 0).all())
+    if rolls[0] == 0:
+        assert float(w[2, 0]) == 0.0
+    got = LT._rep_grad_gather(embed, pi_inv, rolls_t, w, anchor, g, row0)
+    _close(got, g_want, *TOL[torch.float64])
 
 
 def _fit_graph(n, d, k, seed):
@@ -312,7 +377,7 @@ def _fit_graph(n, d, k, seed):
 @pytest.mark.parametrize("part,num_rep", [("attr", 0), ("attr", 8),
                                           ("rep", 1), ("rep", 8)])
 def test_terms_match_jax_parts(part, num_rep):
-    """Plain value and gradient, and the gather-form gradient, against
+    """Plain value and gradient, and the kernel form's, against
     ``_fit_modality_loss(part=...)`` on JAX's draws (num_rep 0: the
     modality loss is the attraction alone)."""
     jax = pytest.importorskip("jax")
@@ -342,9 +407,8 @@ def test_terms_match_jax_parts(part, num_rep):
     if part == "attr":
         args = (p_task.nbrs, coef, A, B)
         v, g = _autograd(LT.fit_attraction_plain, e, *args, g=1.0)
-        g_gather = LT._attr_grad_gather(e, p_task.nbrs, coef,
-                                        LT.reverse_index(p_task.nbrs, n), 1.0,
-                                        A, B)
+        v_kernel, g_gather = _attr_kernel_form(
+            e, p_task.nbrs, coef, LT.reverse_index(p_task.nbrs, n), 1.0)
         if num_rep == 0:  # the modality loss without repulsion
             m = PL._fit_modality_loss(e, p_task, p_static, draws, a=A, b=B,
                                       num_rep=0, batch_size=32,
@@ -354,11 +418,31 @@ def test_terms_match_jax_parts(part, num_rep):
         rolls = torch.tensor(PL._fit_rolls(draws, p_static, num_rep))
         args = (draws.pi, draws.pi_inv, rolls, rep_coef, A, B)
         v, g = _autograd(LT.fit_repulsion_plain, e, *args, g=1.0)
-        g_gather = LT._rep_grad_gather(e, *args[:4], 1.0, A, B)
-    np.testing.assert_allclose(float(v), float(v_j), rtol=1e-5)
+        v_kernel, g_gather = _rep_kernel_form(e, *args[:4], 1.0)
+    for value in (v, v_kernel):
+        np.testing.assert_allclose(float(value), float(v_j), rtol=1e-5)
     for got in (g, g_gather):
         np.testing.assert_allclose(got.numpy(), np.asarray(g_j), rtol=2e-4,
                                    atol=1e-6)
+
+
+def _launch_counts() -> dict:
+    """Every layout-term launch counter, copied."""
+    return {"fwd": {t: dict(c) for t, c in LT.FWD_LAUNCHES.items()},
+            "bwd": (LT.FIT_ATTR_BWD_LAUNCHES, LT.FIT_REP_BWD_LAUNCHES),
+            "passes": dict(LT.BWD_PASS_LAUNCHES)}
+
+
+def _launched(before: dict) -> dict:
+    """Launches since ``before`` (:func:`_launch_counts`): each forward
+    instance and each backward kernel by name, and the backward calls."""
+    now = _launch_counts()
+    out = {f"{t}/{i}": now["fwd"][t][i] - before["fwd"][t][i]
+           for t in now["fwd"] for i in now["fwd"][t]}
+    out.update({k: v - before["passes"][k]
+                for k, v in now["passes"].items()})
+    out["bwd_calls"] = sum(now["bwd"]) - sum(before["bwd"])
+    return out
 
 
 def _no_kernel(monkeypatch):
@@ -371,8 +455,7 @@ def _no_kernel(monkeypatch):
 @pytest.mark.parametrize("term", ["attr", "rep"])
 def test_cpu_tensor_takes_the_plain_version(term, monkeypatch):
     _no_kernel(monkeypatch)
-    before = (LT.FIT_ATTR_LAUNCHES, LT.FIT_REP_LAUNCHES,
-              LT.FIT_ATTR_BWD_LAUNCHES, LT.FIT_REP_BWD_LAUNCHES)
+    before = _launch_counts()
     if term == "attr":
         embed, nbrs, coef = _attr_problem(40, 40, 0, 4, 3, 3, torch.float32)
         args = (nbrs, coef, A, B)
@@ -383,8 +466,7 @@ def test_cpu_tensor_takes_the_plain_version(term, monkeypatch):
         got = _autograd(LT.fit_repulsion, *args, A, B)
         want = _autograd(LT.fit_repulsion_plain, *args, A, B)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert before == (LT.FIT_ATTR_LAUNCHES, LT.FIT_REP_LAUNCHES,
-                      LT.FIT_ATTR_BWD_LAUNCHES, LT.FIT_REP_BWD_LAUNCHES)
+    assert before == _launch_counts()
 
 
 def test_non_cuda_device_raises_without_fallback():
@@ -638,32 +720,93 @@ def test_cuda_tensor_never_takes_the_plain_version(term, monkeypatch):
                                         else "d3_r1")
     monkeypatch.setattr(LT, "fit_attraction_plain", refuse)
     monkeypatch.setattr(LT, "fit_repulsion_plain", refuse)
-    counts = (LT.FIT_ATTR_LAUNCHES + LT.FIT_REP_LAUNCHES,
-              LT.FIT_ATTR_BWD_LAUNCHES + LT.FIT_REP_BWD_LAUNCHES)
+    before = _launch_counts()
     _autograd(fn, embed, *args, **kw)
-    assert (LT.FIT_ATTR_LAUNCHES + LT.FIT_REP_LAUNCHES,
-            LT.FIT_ATTR_BWD_LAUNCHES + LT.FIT_REP_BWD_LAUNCHES) == (
-                counts[0] + 1, counts[1] + 1)
+    got = _launched(before)
+    assert got[f"fit_{term}/with_grad"] == 1 and got["bwd_calls"] == 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("term,case", [("attr", "d33"), ("attr", "d128"),
                                        ("rep", "r17_row_range")])
 def test_backward_launches_each_pass(term, case):
-    """A backward call launches its edge pass and its gather once each,
-    and the attraction's finishing pass once where a row has more than
-    CHUNK_EDGES in-edges (d33's hub), else not at all."""
+    """A backward call launches its gather once, and the attraction's
+    finishing pass once where a row has more than CHUNK_EDGES in-edges
+    (d33's hub), else not at all; no other backward kernel exists."""
     _require_cuda()
     fn, _, embed, args, kw = _cuda_case(term, case)
-    before = dict(LT.BWD_PASS_LAUNCHES)
+    before = _launch_counts()
     _autograd(fn, embed, *args, **kw)
-    got = {k: v - before[k] for k, v in LT.BWD_PASS_LAUNCHES.items()}
+    got = {k: v for k, v in _launched(before).items() if k.endswith("kernel")}
     hubs = term == "attr" and bool(
         (torch.bincount(args[0].reshape(-1)) > C).any())
     assert hubs == (case == "d33")
-    want = {f"fit_{term}_bwd_weights_kernel": 1, f"fit_{term}_bwd_kernel": 1}
+    want = {f"fit_{term}_bwd_kernel": 1}
     if term == "attr":
         want["fit_attr_bwd_finish_kernel"] = int(hubs)
     assert {k: v for k, v in got.items() if k.startswith(f"fit_{term}")} \
         == want
     assert sum(got.values()) == sum(want.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("term,case", [("attr", "d33"), ("attr", "d200"),
+                                       ("rep", "main_width"),
+                                       ("rep", "d200_r9")])
+def test_grad_forward_saves_what_its_backward_gathers(term, case):
+    """A grad-enabled forward and its backward: the with-grad forward
+    once, its gather once, the finishing pass at most once, the loss-only
+    instance never, and the other term's kernels not at all."""
+    _require_cuda()
+    fn, _, embed, args, kw = _cuda_case(term, case)
+    before = _launch_counts()
+    _autograd(fn, embed, *args, **kw)
+    got = _launched(before)
+    other = "rep" if term == "attr" else "attr"
+    assert got[f"fit_{term}/with_grad"] == 1
+    assert got[f"fit_{term}/loss_only"] == 0
+    assert got[f"fit_{term}_bwd_kernel"] == 1 and got["bwd_calls"] == 1
+    assert got["fit_attr_bwd_finish_kernel"] <= 1
+    assert all(v == 0 for k, v in got.items() if k.startswith(f"fit_{other}"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("term,case", [("attr", "main_width"),
+                                       ("attr", "d300_row_range"),
+                                       ("rep", "r17_row_range"),
+                                       ("rep", "d200")])
+def test_loss_only_forward_without_grad(term, case):
+    """Under ``torch.no_grad()``, or on a table that needs no gradient,
+    the forward launches only its loss-only instance, and its loss has
+    the bits of the with-grad instance's."""
+    _require_cuda()
+    fn, _, embed, args, kw = _cuda_case(term, case)
+    before = _launch_counts()
+    with torch.no_grad():
+        v_off = fn(embed.clone().requires_grad_(True), *args, **kw)
+    v_plain = fn(embed, *args, **kw)  # embed needs no gradient
+    got = _launched(before)
+    assert got[f"fit_{term}/loss_only"] == 2
+    assert sum(got.values()) == 2
+    v_grad, _ = _autograd(fn, embed, *args, **kw)
+    assert torch.equal(v_off, v_grad) and torch.equal(v_plain, v_grad)
+    assert not v_off.requires_grad and not v_plain.requires_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1.0, 0.37, -2.5])
+@pytest.mark.parametrize("term,case", [
+    ("attr", "main_width"), ("attr", "row_range_chunk_bounds"),
+    ("attr", "d200_chunk_bounds"), ("rep", "main_width"),
+    ("rep", "r17_row_range"), ("rep", "d200_r17_row_range")])
+def test_kernels_match_plain_at_any_gradient(term, case, g):
+    """The kernels against the float64 plain term with the loss scaled by
+    ``g`` before its backward, which the gathers apply where each row
+    ends, at ``test_kernels_match_plain_on_cuda``'s tolerances."""
+    _require_cuda()
+    fn, plain, embed, args, kw = _cuda_case(term, case)
+    v, grad = _autograd(fn, embed, *args, g=g, **kw)
+    torch.cuda.synchronize()
+    v_p, g_p = _autograd(plain, embed.double(), *_f64(args), g=g, **kw)
+    torch.testing.assert_close(v.double(), v_p, rtol=1e-5, atol=0.0)
+    _close(grad.double(), g_p, *TOL[torch.float32])
