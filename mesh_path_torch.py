@@ -94,20 +94,15 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
     rehearses it on the CPU."""
     import chip_smoke as CS
     from multimodal_umap_tpu_torch import Config
+    from multimodal_umap_tpu_torch.models import layout as PL
     from multimodal_umap_tpu_torch.models.curve import get_ab_coeffs
     from multimodal_umap_tpu_torch.models.encoder import ModalityEncoder
     from multimodal_umap_tpu_torch.models.layout import (
-        draw_epoch,
-        epoch_rng,
         fit_task,
         make_optimizer,
         query_task,
-        train_layout,
-        with_reverse_index,
-    )
-    from multimodal_umap_tpu_torch.models.layout_sharded import (
-        sharded_chunk_runner,
         sharded_compatible,
+        train_layout,
     )
     from multimodal_umap_tpu_torch.ops import knn_tile as KT
     from multimodal_umap_tpu_torch.ops import spectral as S
@@ -225,9 +220,23 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
             fails.append("sharded_compatible is True at one rank")
         kw = dict(num_rep=cfg.num_rep, alpha=cfg.alpha)
 
-        def draws(e):
-            return draw_epoch(epoch_rng(cfg.seed, e, dev), tasks, statics,
-                              mode="fit", **kw)
+        def mesh_epochs(params, opt, tasks, statics, mode, seed, start,
+                        take):
+            """Epochs [start, start + take) of the mesh engine called
+            directly (``train_layout`` takes it past one rank only): the
+            loss made with the mesh, run eagerly on the (seed, epoch)
+            draws."""
+            alpha = cfg.alpha if mode == "fit" else 0.0
+            loss_fn = PL.make_loss_fn(statics, mode=mode, num_rep=cfg.num_rep,
+                                      alpha=alpha,
+                                      batch_size=cfg.batch_size, mesh=mesh)
+            inputs = PL._EpochInputs(tasks, statics, mode=mode,
+                                     num_rep=cfg.num_rep, alpha=alpha,
+                                     seed=seed, device=dev,
+                                     first_epoch=start)
+            with PL._eager_chunk_runner(params, opt, loss_fn, tasks, a, b,
+                                        inputs, start, mesh=mesh) as run:
+                return run(start, take)
 
         def single_run():
             return train_layout(inits, tasks, statics, mode="fit",
@@ -243,17 +252,15 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
         again, _ = single_run()
         _sync()
         t_single = time.perf_counter() - t0
-        runner = sharded_chunk_runner(tuple(statics), "fit", cfg.num_rep,
-                                      cfg.alpha, cfg.batch_size, mesh)
         params = [e.detach().clone().requires_grad_(True) for e in inits]
         opt = make_optimizer(params, cfg.lr)  # train_layout's update
         # a direct caller of the runner builds the attraction kernel's
         # reverse index itself (train_layout does it for its own runs)
-        sharded_tasks = with_reverse_index(tasks, statics)
+        sharded_tasks = PL.with_reverse_index(tasks, statics)
         CS.reset_counts(KT)  # the sharded engine's own term launches
         t0 = time.perf_counter()
-        hist_m = runner(params, opt, sharded_tasks, a, b, draws, 0,
-                        LAYOUT_EPOCHS)
+        hist_m = mesh_epochs(params, opt, sharded_tasks, statics, "fit",
+                             cfg.seed, 0, LAYOUT_EPOCHS)
         _sync()
         t_mesh = time.perf_counter() - t0
         line["layout_term_launches"] = CS.term_launches()
@@ -296,25 +303,19 @@ def nccl_world1(train_np, test_np, dev, out_dir, backend: str = "nccl"
         # recorded collectives: one fit epoch, one 4-epoch transform chunk
         table = n_train * cfg.out_dim * 4
         with recording() as ops:
-            runner(params, opt, sharded_tasks, a, b, draws, LAYOUT_EPOCHS,
-                   1)
+            mesh_epochs(params, opt, sharded_tasks, statics, "fit", cfg.seed,
+                        LAYOUT_EPOCHS, 1)
         fit_s = collective_summary(ops)
         enc = ModalityEncoder(K, cfg.out_dim)
         nbrs, weights, q_init = enc.transform_graph(
             torch.from_numpy(test_np["texts"]).to(dev), tables[0], single[0])
         task, static = query_task(nbrs, weights, cfg.batch_size,
                                   ref=single[0])
-        trunner = sharded_chunk_runner((static,), "transform", cfg.num_rep,
-                                       0.0, cfg.batch_size, mesh)
         q_par = [q_init.clone().requires_grad_(True)]
         q_opt = make_optimizer(q_par, cfg.lr)
-
-        def q_draws(e):
-            return draw_epoch(epoch_rng(cfg.seed + 1, e, dev), [task],
-                              [static], mode="transform", **kw)
-
         with recording() as ops:
-            trunner(q_par, q_opt, [task], a, b, q_draws, 0, 4)
+            mesh_epochs(q_par, q_opt, (task,), (static,), "transform",
+                        cfg.seed + 1, 0, 4)
         tr_s = collective_summary(ops)
         line["collectives"] = {
             "table_bytes": table,

@@ -21,7 +21,7 @@ Under a mesh (``mesh=``, more than one rank) every mode takes this
 rank's row shards of its tables and returns this rank's rows: the kNN
 rides the ring (ops/knn_stream.py), so no rank holds a feature table,
 and the init's reference rows are fetched by ring too
-(``layout_sharded._ring_rows``). The fit graph's (N, k) kNN results are
+(``layout._ring_rows``). The fit graph's (N, k) kNN results are
 all-gathered and symmetrized whole on every rank (the reverse-edge
 lookup needs every row), and the spectral init runs on the
 destination-sharded graph.
@@ -68,7 +68,7 @@ def _ring_knn(q_shard, r_shard, k, mesh, *, exclude_self, engine):
 
 def _ring_embed_query(nbrs, weights, ref_shard, mesh) -> torch.Tensor:
     """``embed_query`` with the reference rows fetched by ring."""
-    from .layout_sharded import _ring_rows
+    from .layout import _ring_rows
 
     rows = _ring_rows(ref_shard, nbrs, mesh)  # (Q, k, D)
     slots = torch.arange(nbrs.numel(), device=nbrs.device).view(nbrs.shape)

@@ -49,12 +49,30 @@ buffers), ``warmup`` and ``capture`` (the graph runner's) and
 ``epochs``; under an active ``torch.profiler`` the epoch's
 :data:`EPOCH_SECTIONS` are timed too (``prof.Sections``: border events,
 in a captured epoch event-record nodes, none while no profiler runs).
+
+On a mesh of P > 1 ranks (the counterpart of
+``multimodal_umap_tpu/models/layout_sharded.py``'s ``shard_map`` epoch,
+one process a rank on ``torch.distributed``) each rank holds its rows of
+every table and Adam steps them; the loss and the step are the same
+functions, made with the ``mesh`` (:func:`make_loss_fn`), on the rank's
+rows of the same full-shape draws, so that summed over the ranks the loss
+and its gradient are the single-device ones (at one rank bit-equal). Per
+epoch the fit loss makes ONE all-gather of each modality's table
+(``parallel.collectives.all_gather_rows``; every term reads the gathered
+copy, so the whole gradient leaves through its ONE reduce-scatter), one
+(N,) all-reduce (transposed-slot counts) and one (N,) all-gather (row
+counts) a modality; the loss history takes one all-reduce a chunk. In
+transform / invert the frozen reference tables are gathered once a chunk,
+or kept sharded with their rows fetched by :func:`_ring_rows` (attraction
+rows once a chunk, each epoch's negative rows in one ring); epochs then
+move only (Q,) window sums. The mesh runs eagerly, without recompute.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import typing
 
@@ -65,6 +83,12 @@ from ..ops import losses as L
 from ..ops.graph import DenseSymGraph
 from ..ops.layout_terms import _recompute
 from ..ops.scatter_free import random_permutation_pair
+from ..parallel.collectives import (
+    all_gather_rows,
+    all_gather_tensor,
+    psum,
+    ring_pass,
+)
 from ..utils import prof
 
 
@@ -319,85 +343,144 @@ def with_reverse_index(tasks, statics):
 
 
 def _fit_coefs(task: LayoutTask, static: TaskStatic, draws: FitDraws, *,
-               batch_size: int, deterministic: bool):
-    """One epoch's (N, k) attraction and (N,) repulsion coefficients:
-    each kept entry's window weight 1/(cnt_window * W)."""
+               batch_size: int, deterministic: bool, row0: int = 0,
+               mesh=None):
+    """One epoch's (rows, k) attraction and (rows,) repulsion coefficients
+    of the task's anchor rows ``[row0, row0 + rows)``: each kept entry's
+    window weight 1/(cnt_window * W)."""
+    mine = slice(row0, row0 + task.nbrs.shape[0])
     if deterministic:
         keep_f = task.weights
         keep_b = task.weights * task.bwd_valid.float()
     else:
-        keep_f = (draws.keep_u_f < task.weights).float()
-        keep_b = ((draws.keep_u_b < task.weights) & task.bwd_valid).float()
+        keep_f = (draws.keep_u_f[mine] < task.weights).float()
+        keep_b = ((draws.keep_u_b[mine] < task.weights)
+                  & task.bwd_valid).float()
 
     # Kept-entry counts anchored at each row: forward slots directly,
-    # transposed slots grouped by column (no gradient path).
+    # transposed slots grouped by column (no gradient path); on a mesh
+    # one (N,) all-reduce and one (N,) all-gather give every row's.
     bwd_cnt = torch.zeros(static.num_rows, dtype=torch.float32,
                           device=task.nbrs.device).index_add_(
         0, task.nbrs.reshape(-1), keep_b.reshape(-1))
-    rowcnt = keep_f.sum(1) + bwd_cnt
+    if mesh is None:
+        rowcnt = keep_f.sum(1) + bwd_cnt
+    else:
+        bwd_cnt = psum(bwd_cnt, mesh)
+        rowcnt = all_gather_tensor(keep_f.sum(1), mesh) + bwd_cnt
     inv_row = _inv_window_coef(rowcnt, batch_size, static.num_windows)
     # Both copies of a pair share f(x_i, x_j); the forward copy is
     # windowed by i, the transposed copy by j.
-    coef = keep_f * inv_row[:, None] + keep_b * inv_row[task.nbrs]
-    return coef, rowcnt * inv_row
+    coef = keep_f * inv_row[mine, None] + keep_b * inv_row[task.nbrs]
+    return coef, rowcnt[mine] * inv_row[mine]
 
 
 def _fit_modality_loss(embed, task: LayoutTask, static: TaskStatic,
                        draws: FitDraws, *, a, b, num_rep: int,
                        batch_size: int, deterministic: bool,
                        slot_bytes: int | None = None,
-                       rolls: torch.Tensor | None = None) -> torch.Tensor:
-    """``rolls``: the (num_rep,) int64 device vector of the repulsion
-    offsets (None: made from ``draws``' ints). The attraction and the
-    repulsion are ``ops.layout_terms``' (kernels on the card)."""
+                       rolls: torch.Tensor | None = None, row0: int = 0,
+                       mesh=None) -> torch.Tensor:
+    """The fit loss of the task's anchor rows ``[row0, row0 + rows)`` of
+    the whole table ``embed`` (on a mesh the rank's rows of its gathered
+    copy; summed over the ranks, the loss once). ``rolls``: the
+    (num_rep,) int64 device vector of the repulsion offsets (None: made
+    from ``draws``' ints). The attraction and the repulsion are
+    ``ops.layout_terms``' (kernels on the card)."""
     if rolls is None:
         rolls = torch.tensor(_fit_rolls(draws, static, num_rep),
                              dtype=torch.int64, device=embed.device)
     coef, rep_coef = _fit_coefs(task, static, draws, batch_size=batch_size,
-                                deterministic=deterministic)
+                                deterministic=deterministic, row0=row0,
+                                mesh=mesh)
     loss_attr = LT.fit_attraction(
-        embed, task.nbrs, coef, a, b, rev=task.rev,
+        embed, task.nbrs, coef, a, b, row0=row0, rev=task.rev,
         slot_bytes=_ATTR_SLOT_BYTES if slot_bytes is None else slot_bytes)
     if num_rep == 0:
         return loss_attr
     # Round r's negative for row i is permuted[(i + rolls[r]) % n]
     # (:func:`_fit_rolls`).
     return loss_attr + LT.fit_repulsion(embed, draws.pi, draws.pi_inv, rolls,
-                                        rep_coef, a, b)
+                                        rep_coef, a, b, row0=row0)
 
 
 def _query_modality_loss(embed, task: LayoutTask, static: TaskStatic,
                          draws: QueryDraws, *, a, b, num_rep: int,
                          batch_size: int, deterministic: bool,
-                         mode: str = "transform") -> torch.Tensor:
+                         mode: str = "transform", row0: int = 0, mesh=None,
+                         attr_rows: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """Transform/invert: queries attract to frozen reference rows and
     repel from iid-uniform reference rows; nothing reaches ``ref``.
     Invert uses the inverse losses with the reference rows' fit-time
-    sigma (attraction) and sigma/rho (repulsion)."""
+    sigma (attraction) and sigma/rho (repulsion).
+
+    On a mesh ``embed`` and the task's slots are the rank's query rows
+    from ``row0``: the window sums are all-gathered and the loss divided
+    by P, so that the sum over the ranks is the loss once. ``attr_rows``
+    (the ring engine's): the slots' (rows, k, D) attraction rows, with
+    ``task.ref`` the rank's shard, whose negative rows one
+    :func:`_ring_rows` fetches."""
+    mine = slice(row0, row0 + task.nbrs.shape[0])
     keep = (task.weights if deterministic
-            else (draws.keep_u < task.weights).float())
+            else (draws.keep_u[mine] < task.weights).float())
+    neg_idx = draws.neg_idx[:, mine]
+    y_negs = (_ring_rows(task.ref, neg_idx, mesh)
+              if attr_rows is not None and num_rep > 0 else None)
+
+    # The reference rows of ``ids``: ``fetched`` (by ring) or gathered
+    # from the whole table. Each is an argument, freed once its term is
+    # made.
+    def rows(ids, fetched):
+        return task.ref[ids] if fetched is None else fetched
+
     x = embed[:, None, :]
     if mode == "invert":
-        attr = L.inv_attr(x, task.ref[task.nbrs], a, b,
+        attr = L.inv_attr(x, rows(task.nbrs, attr_rows), a, b,
                           task.sigmas[task.nbrs])
     else:
-        attr = L.umap_attr(x, task.ref[task.nbrs], a, b)
+        attr = L.umap_attr(x, rows(task.nbrs, attr_rows), a, b)
     if num_rep > 0:
         rep_sum = torch.zeros_like(attr)
         for r in range(num_rep):
-            neg = draws.neg_idx[r]
+            neg = neg_idx[r]
+            fetched = None if y_negs is None else y_negs[r]
             if mode == "invert":
-                rep = L.inv_rep(x, task.ref[neg], task.sigmas[neg],
+                rep = L.inv_rep(x, rows(neg, fetched), task.sigmas[neg],
                                 task.rhos[neg])
             else:
-                rep = L.umap_rep(x, task.ref[neg], a, b)
+                rep = L.umap_rep(x, rows(neg, fetched), a, b)
             rep_sum = rep_sum + rep
         per_slot = keep * (attr + rep_sum / num_rep)
     else:
         per_slot = keep * attr
-    win_mean = _window_means_from_rows(per_slot.sum(1), keep.sum(1),
-                                       batch_size, static.num_windows)
-    return win_mean.mean()
+    row_vals, row_cnt = per_slot.sum(1), keep.sum(1)
+    if mesh is not None:
+        row_vals = all_gather_rows(row_vals, mesh)
+        row_cnt = all_gather_tensor(row_cnt, mesh)
+    win_mean = _window_means_from_rows(row_vals, row_cnt, batch_size,
+                                       static.num_windows)
+    return win_mean.mean() if mesh is None else win_mean.mean() / mesh.size
+
+
+def _ring_rows(ref_shard: torch.Tensor, ids: torch.Tensor,
+               mesh) -> torch.Tensor:
+    """Rows of a row-sharded table selected by GLOBAL id: each rank
+    serves the ids in the shard it holds, then passes the shard on --
+    P - 1 ring passes, never more than one (N/P, D) shard in flight.
+    Returns ``(*ids.shape, D)`` in the table's storage dtype."""
+    r_rows = ref_shard.shape[0]
+    out = ref_shard.new_zeros((*ids.shape, ref_shard.shape[1]))
+    ids = ids.long()
+    cur = ref_shard
+    for step in range(mesh.size):
+        lo = ((mesh.rank - step) % mesh.size) * r_rows
+        local = ids - lo
+        mask = (local >= 0) & (local < r_rows)
+        out[mask] = cur[local[mask]]
+        if step < mesh.size - 1:
+            cur = ring_pass(cur, mesh)
+    return out
 
 
 _MODES = ("fit", "transform", "invert")
@@ -451,52 +534,68 @@ def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
                  n_neg_infonce: int = 8, infonce_temperature: float = 0.5,
                  deterministic: bool = False,
                  remat_rows: int | None = None,
-                 slot_bytes: int | None = None):
+                 slot_bytes: int | None = None, mesh=None):
     """The total loss of one epoch:
     ``loss(params, tasks, a, b, draws: EpochDraws, rolls=None,
-    sections=None) -> scalar``, ``rolls`` the epoch's :func:`pack_rolls`
-    as an int64 device vector (None: made from ``draws``' ints),
-    ``sections`` a ``prof.Sections`` that marks InfoNCE's borders
-    (:data:`EPOCH_SECTIONS`; None: nothing is marked).
+    sections=None, attr_rows=None) -> scalar``, ``rolls`` the epoch's
+    :func:`pack_rolls` as an int64 device vector (None: made from
+    ``draws``' ints), ``sections`` a ``prof.Sections`` that marks
+    InfoNCE's borders (:data:`EPOCH_SECTIONS`; None: nothing is marked).
 
     Fit mode recomputes a modality's loss in the backward past
     ``remat_rows`` rows (default :data:`_MODALITY_REMAT_ROWS`) and scans
     its attraction's slots past ``slot_bytes`` (default
-    :data:`_ATTR_SLOT_BYTES`); both defaults are read at each call."""
+    :data:`_ATTR_SLOT_BYTES`); both defaults are read at each call.
+
+    With a ``mesh`` the loss is this rank's part (the module's
+    docstring): ``params`` and ``tasks`` hold the rank's rows, ``draws``
+    are the epoch's full-shape ones, and summed over the ranks loss and
+    gradient are the single-device ones; InfoNCE runs on the gathered
+    tables, divided by P. ``attr_rows[i]`` non-None (the ring engine's
+    attraction rows of query modality i) leaves ``tasks[i].ref`` a
+    shard."""
     if mode not in _MODES:
         raise ValueError(f"invalid mode: {mode}")
 
     def loss_fn(params, tasks, a, b, draws: EpochDraws, rolls=None,
-                sections: prof.Sections | None = None):
+                sections: prof.Sections | None = None, attr_rows=None):
         if rolls is None:
             rolls = torch.tensor(pack_rolls(draws, statics, num_rep),
                                  dtype=torch.int64, device=params[0].device)
+        tables = params
+        if mesh is not None and mode == "fit":
+            tables = [all_gather_rows(e, mesh) for e in params]
         pos = 0  # rolls read so far
         total = params[0].new_zeros(())
         for i, static in enumerate(statics):
             kw = dict(a=a, b=b, num_rep=num_rep, batch_size=batch_size,
-                      deterministic=deterministic)
+                      deterministic=deterministic, mesh=mesh,
+                      row0=0 if mesh is None
+                      else mesh.rank * params[i].shape[0])
             if mode == "fit":
-                args = (params[i], tasks[i], static, draws.modality[i])
+                args = (tables[i], tasks[i], static, draws.modality[i])
                 kw["slot_bytes"] = slot_bytes
                 kw["rolls"] = rolls[pos:pos + num_rep]
                 pos += num_rep
                 rows = (_MODALITY_REMAT_ROWS if remat_rows is None
                         else remat_rows)
-                if static.num_rows > rows:
+                # Not on a mesh: the recomputed forward would issue its
+                # count collectives again in the backward.
+                if static.num_rows > rows and mesh is None:
                     loss = _recompute(_fit_modality_loss, *args, **kw)
                 else:
                     loss = _fit_modality_loss(*args, **kw)
             else:
-                loss = _query_modality_loss(params[i], tasks[i], static,
-                                            draws.modality[i], mode=mode,
-                                            **kw)
+                loss = _query_modality_loss(
+                    params[i], tasks[i], static, draws.modality[i],
+                    mode=mode, attr_rows=None if attr_rows is None
+                    else attr_rows[i], **kw)
             total = total + loss
         if mode == "fit" and len(statics) > 1 and alpha != 0.0:
             # Symmetric InfoNCE added to both modality buckets => 2*alpha
             # effective weight.
-            nce = (params if sections is None else
-                   sections.through(params, "infonce_fwd", "modality_bwd"))
+            nce = (tables if sections is None else
+                   sections.through(tables, "infonce_fwd", "modality_bwd"))
             pair = iter(draws.infonce)
             terms = []
             for i in range(len(statics)):
@@ -509,7 +608,9 @@ def make_loss_fn(statics: typing.Sequence[TaskStatic], *, mode: str,
                     l_ij, l_ji = L.infonce_pair(
                         d_ij, d_ji, nce[i], nce[j], n_neg=n_neg_infonce,
                         temperature=infonce_temperature, rolls=(r_ij, r_ji))
-                    terms.append(alpha * (l_ij + l_ji))
+                    term = alpha * (l_ij + l_ji)
+                    # the same on every rank: 1/P counts it once
+                    terms.append(term if mesh is None else term / mesh.size)
             _start(sections, "infonce_bwd")
             for term in terms:
                 total = total + term
@@ -628,20 +729,35 @@ def _epoch_step(params, optimizer, loss_fn, tasks, a, b,
 @contextlib.contextmanager
 def _eager_chunk_runner(params, optimizer, loss_fn, tasks, a, b,
                         inputs: _EpochInputs, first_epoch: int,
-                        sections: prof.Sections | None = None):
-    """One eager step per epoch (the CPU's runner): yields
-    ``run_chunk(start, take) -> (take,) losses``; ``sections`` times
-    every epoch."""
+                        sections: prof.Sections | None = None, mesh=None,
+                        ring: bool = False):
+    """One eager step per epoch (the CPU's runner, and the mesh's on any
+    device): yields ``run_chunk(start, take) -> (take,) losses``;
+    ``sections`` times every epoch. With a ``mesh`` (``loss_fn`` made
+    with it) the history is summed over the ranks, one all-reduce a
+    chunk, and query tasks' reference tables are gathered whole once a
+    chunk or, with ``ring``, kept sharded, their attraction rows fetched
+    by :func:`_ring_rows` once a chunk."""
     del first_epoch
 
     def run_chunk(start: int, take: int) -> torch.Tensor:
+        chunk_tasks, chunk_loss = tasks, loss_fn
+        if mesh is not None and tasks[0].ref is not None:
+            with torch.no_grad():
+                if ring:
+                    chunk_loss = functools.partial(loss_fn, attr_rows=[
+                        _ring_rows(t.ref, t.nbrs, mesh) for t in tasks])
+                else:
+                    chunk_tasks = [
+                        t._replace(ref=all_gather_tensor(t.ref, mesh))
+                        for t in tasks]
         hist = torch.empty(take, dtype=torch.float32,
                            device=params[0].device)
         for t in range(take):
             inputs.set_epoch(start + t)
-            hist[t] = _epoch_step(params, optimizer, loss_fn, tasks, a, b,
-                                  inputs, sections)
-        return hist
+            hist[t] = _epoch_step(params, optimizer, chunk_loss, chunk_tasks,
+                                  a, b, inputs, sections)
+        return hist if mesh is None else psum(hist, mesh)
 
     yield run_chunk
 
@@ -715,6 +831,26 @@ def _graph_chunk_runner(params, optimizer, loss_fn, tasks, a, b,
         optimizer.zero_grad(set_to_none=True)
 
 
+def sharded_compatible(params, tasks, statics, mesh) -> bool:
+    """True when the mesh has more than one rank and every task holds
+    this rank's equal share of its rows (local params and slot arrays of
+    num_rows / P rows, the reference shard of rep_count / P rows, whole
+    bandwidths) -- the gate for ``train_layout``'s sharded route."""
+    p = 1 if mesh is None else mesh.size
+    if p <= 1:
+        return False
+    for e, t, s in zip(params, tasks, statics):
+        rows = e.shape[0]
+        if rows != t.nbrs.shape[0] or rows * p != s.num_rows:
+            return False
+        if t.ref is not None and t.ref.shape[0] * p != s.rep_count:
+            return False
+        for leaf in (t.sigmas, t.rhos):
+            if leaf is not None and leaf.shape[0] != s.rep_count:
+                return False
+    return True
+
+
 def train_layout(
     init_embeds: typing.Sequence[torch.Tensor],
     tasks: typing.Sequence[LayoutTask],
@@ -753,12 +889,12 @@ def train_layout(
     epochs the original would have run.
 
     ``mesh`` with more than one rank, with tasks and inits holding this
-    rank's rows (``layout_sharded.sharded_compatible``), takes the
-    sharded engine (``layout_sharded.sharded_chunk_runner``): in query
+    rank's rows (:func:`sharded_compatible`), makes the loss with the
+    mesh and runs it eagerly (:func:`_eager_chunk_runner`): in query
     modes it keeps the reference tables sharded and fetches their rows by
     ring once a table is over ``MMUMAP_REF_GATHER_BYTES`` (default 1
-    GiB) whole; it runs eagerly. Anything else runs the single-device
-    runner (on every rank).
+    GiB) whole. Anything else runs the single-device runner (on every
+    rank).
 
     Returns (final embeddings per modality, (epochs - start_epoch,) f32
     loss history on the CPU).
@@ -778,50 +914,30 @@ def train_layout(
         optimizer = make_optimizer(params, lr)
         if init_opt_state is not None:
             _set_adam_state(optimizer, params, init_opt_state)
-        loss_fn = make_loss_fn(statics, mode=mode, num_rep=num_rep,
-                               alpha=alpha, batch_size=batch_size)
         tasks = tuple(tasks)
         if mode == "fit":
             tasks = with_reverse_index(tasks, statics)
-        runner = None
-        sections = None
-        if mesh is not None and mesh.size > 1:
-            from .layout_sharded import (
-                sharded_chunk_runner,
-                sharded_compatible,
-            )
-
-            if sharded_compatible(params, tasks, statics, mesh):
-                ref_gather = "full"
-                thresh = float(os.environ.get("MMUMAP_REF_GATHER_BYTES",
-                                              1 << 30))
-                if mode != "fit" and any(
-                        t.ref is not None
-                        and t.ref.numel() * t.ref.element_size() * mesh.size
-                        > thresh for t in tasks):
-                    ref_gather = "ring"
-                sharded = sharded_chunk_runner(
-                    tuple(statics), mode, num_rep, alpha, batch_size, mesh,
-                    ref_gather)
-                if draws is None:
-                    def draws(epoch):
-                        return draw_epoch(epoch_rng(seed, epoch, device),
-                                          tasks, statics, mode=mode,
-                                          num_rep=num_rep, alpha=alpha)
-                sections = prof.traced_sections(device)
-                runner = contextlib.nullcontext(
-                    lambda start, take: sharded(params, optimizer, tasks, a,
-                                                b, draws, start, take,
-                                                sections))
-        if runner is None:
-            inputs = _EpochInputs(tasks, statics, mode=mode, num_rep=num_rep,
-                                  alpha=alpha, seed=seed, device=device,
-                                  draws=draws, first_epoch=start_epoch)
-            sections = prof.traced_sections(device)
-            chunk_runner = (_graph_chunk_runner if device.type == "cuda"
-                            else _eager_chunk_runner)
-            runner = chunk_runner(params, optimizer, loss_fn, tasks, a, b,
-                                  inputs, start_epoch, sections)
+        if not sharded_compatible(params, tasks, statics, mesh):
+            mesh = None
+        loss_fn = make_loss_fn(statics, mode=mode, num_rep=num_rep,
+                               alpha=alpha, batch_size=batch_size, mesh=mesh)
+        inputs = _EpochInputs(tasks, statics, mode=mode, num_rep=num_rep,
+                              alpha=alpha, seed=seed, device=device,
+                              draws=draws, first_epoch=start_epoch)
+        sections = prof.traced_sections(device)
+        if mesh is not None:
+            thresh = float(os.environ.get("MMUMAP_REF_GATHER_BYTES", 1 << 30))
+            chunk_runner = functools.partial(
+                _eager_chunk_runner, mesh=mesh, ring=any(
+                    t.ref is not None and
+                    t.ref.numel() * t.ref.element_size() * mesh.size > thresh
+                    for t in tasks))
+        elif device.type == "cuda":
+            chunk_runner = _graph_chunk_runner
+        else:
+            chunk_runner = _eager_chunk_runner
+        runner = chunk_runner(params, optimizer, loss_fn, tasks, a, b,
+                              inputs, start_epoch, sections)
 
     history = []
     done = start_epoch

@@ -37,7 +37,7 @@ import os
 import torch
 
 from . import knn_tile as tiled
-from .knn_tile import _candidate_width, knn_tiled
+from .knn_tile import _candidate_width, knn_tiled, merge_topk
 
 _ENGINES = frozenset({"bf16", "xla", "pallas", "approx", "stream"})
 # Above this many bytes of one row block's f32 panel (row_block x N) the
@@ -109,11 +109,7 @@ def _knn_block_streamed(q_block: torch.Tensor, references: torch.Tensor,
         d, i = _knn_block(q_block, references[c0:c1], r_sq[c0:c1],
                           row_offset - c0, min(k, c1 - c0), exclude_self)
         i += c0
-        if best_d is not None:
-            d = torch.cat([best_d, d], 1)
-            d, sel = torch.topk(d, min(k, d.shape[1]), dim=1, largest=False)
-            i = torch.cat([best_i, i], 1).gather(1, sel)
-        best_d, best_i = d, i
+        best_d, best_i = merge_topk(best_d, best_i, d, i, k)
     return best_d, best_i
 
 

@@ -28,17 +28,7 @@ import torch
 
 from ..parallel.collectives import ring_pass
 from ..parallel.mesh import ShardingPlan
-from .knn_tile import knn_tiled
-
-
-def _merge_topk(best_d, best_i, cand_d, cand_i, k: int):
-    """Merges (rows, k) running best with (rows, c) candidates."""
-    if best_d is None:
-        return cand_d, cand_i
-    d_all = torch.cat([best_d, cand_d], 1)
-    i_all = torch.cat([best_i, cand_i], 1)
-    d, sel = torch.topk(d_all, min(k, d_all.shape[1]), dim=1, largest=False)
-    return d, i_all.gather(1, sel)
+from .knn_tile import knn_tiled, merge_topk
 
 
 def knn_ring_shards(
@@ -88,7 +78,7 @@ def knn_ring_shards(
                 q_shard, cur if valid == r_rows else cur[:valid], k_step,
                 exclude_self=self_here, bf16=bf16,
                 row_offset=me * q_rows - col_offset)
-            best_d, best_i = _merge_topk(best_d, best_i, d, i + col_offset, k)
+            best_d, best_i = merge_topk(best_d, best_i, d, i + col_offset, k)
         if step < p - 1:
             cur = ring_pass(cur, mesh)
     return best_d, best_i

@@ -175,6 +175,18 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+def _stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as the entry points
+    take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    """Raises on an entry point's nonzero CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
 def _candidate_width(k: int, n_avail: int) -> int:
     """Candidate-set width of the streamed bf16 engine: >= 2x margin over
     k, rounded up to a multiple of 8, capped at the available references
@@ -283,11 +295,9 @@ def row_norms_sq(x: torch.Tensor) -> torch.Tensor:
     lib = build()
     out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.knn_rownorm_launch(
-            x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"row-norm kernel launch failed: CUDA error {err}")
+        _raise_on(lib.knn_rownorm_launch(
+            x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], _stream(x)),
+            "row-norm")
     ROW_NORM_LAUNCHES += 1
     return out
 
@@ -350,14 +360,10 @@ def knn_tile(
                         device=q.device)
     i_out = torch.empty_like(d_out, dtype=torch.int32)
     with torch.cuda.device(q.device):
-        err = lib.knn_tile_launch(
+        _raise_on(lib.knn_tile_launch(
             q.data_ptr(), r.data_ptr(), *norm_ptrs, d_out.data_ptr(),
             i_out.data_ptr(), nq, n, geo.d_pad, tile_k, row_offset,
-            int(exclude_self), int(bf16),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"knn_tile kernel launch failed: CUDA error {err}")
+            int(exclude_self), int(bf16), _stream(q)), "knn_tile")
     if bf16:
         KNN_TILE_BF16_LAUNCHES += 1
     else:
@@ -369,6 +375,19 @@ def rescore_chunk(cand: int, d: int) -> int:
     """Query rows per chunk of the exact re-score: at most 512, and at most
     2**26 gathered elements (256 MB in f32) per chunk at any D."""
     return max(1, min(512, (1 << 26) // max(1, cand * d)))
+
+
+def merge_topk(best_d, best_i, cand_d, cand_i, k: int):
+    """Merges a (rows, k) running best (None: nothing yet) with (rows, c)
+    candidates: the k smallest of both, the best first in the
+    concatenation that ``torch.topk`` ranks. The one merge of
+    :func:`knn_tiled`'s chunks, the ring's steps
+    (``knn_stream.knn_ring_shards``) and ``knn``'s streamed blocks."""
+    if best_d is None:
+        return cand_d, cand_i
+    d_all = torch.cat([best_d, cand_d], 1)
+    d, sel = torch.topk(d_all, min(k, d_all.shape[1]), dim=1, largest=False)
+    return d, torch.cat([best_i, cand_i], 1).gather(1, sel)
 
 
 def knn_tiled(
@@ -465,14 +484,8 @@ def knn_tiled(
             del cand_d, cand_i  # freed before the next chunk's launch
             if c0:
                 ids += c0
-            if best_d is not None:
-                # merge into the running best, as knn_stream._merge_topk
-                vals = torch.cat([best_d, vals], 1)
-                ids = torch.cat([best_i, ids], 1)
-                vals, pos = torch.topk(vals, min(cand, vals.shape[1]),
-                                       dim=1, largest=False)
-                ids = ids.gather(1, pos)
-            best_d, best_i = vals, ids
+            best_d, best_i = merge_topk(best_d, best_i, vals, ids, cand)
+            del vals, ids  # the chunk's: not held through the re-score
         if not bf16:
             vals, ids = best_d, best_i
         else:

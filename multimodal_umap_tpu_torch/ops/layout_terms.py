@@ -51,6 +51,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import knn_tile as KT
+from .knn_tile import _raise_on, _stream
 from . import losses as L
 from .scatter_free import dynamic_roll, dynamic_slice, permutation_gather
 
@@ -354,10 +355,6 @@ def _check_cuda(embed, ids, n_rows: int, row0: int, a, b, **vectors):
                              f"{embed.device}, got {v.dtype} on {v.device}")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
@@ -366,11 +363,6 @@ def _wants_grad(embed) -> bool:
     """Whether a term's forward saves its backward's weights and anchor
     part: only where autograd will call the backward."""
     return torch.is_grad_enabled() and embed.requires_grad
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def _launch_pass(entry: str, kernel: str, *args) -> None:

@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from . import knn_tile
+from .knn_tile import _raise_on, _stream
 from .scatter_free import (
     dynamic_roll,
     dynamic_slice,
@@ -372,8 +374,6 @@ def _library() -> ctypes.CDLL:
     """The kernels' library (one build with every kernel of the port)."""
     global _lib
     if _lib is None:
-        from . import knn_tile
-
         lib = knn_tile.build()
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.infonce_fwd_blocks.argtypes = [i, i, p, p, p]
@@ -385,11 +385,6 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def _check_kernel_inputs(e0, e1, directions, n_neg: int, num: int,
@@ -415,10 +410,6 @@ def _check_kernel_inputs(e0, e1, directions, n_neg: int, num: int,
                 raise ValueError(f"{name} must be a contiguous ({n},) int64 "
                                  f"tensor on {e0.device}, got {v.dtype} "
                                  f"{tuple(v.shape)} on {v.device}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _fwd_launch(a, b, q, rolls, num: int, ncols: int, temperature: float,

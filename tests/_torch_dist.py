@@ -42,6 +42,9 @@ def _entry(fn, rank: int, world: int, store: str, out: str, args,
             world_size=world, timeout=datetime.timedelta(seconds=timeout))
         result = fn(create_mesh(world, "cpu"), *args)
         torch.save(result, f"{out}.{rank}.pt")
+        # No rank closes its connections while a peer's are still being
+        # set up (a rank that makes no collective can finish first).
+        dist.barrier()
         dist.destroy_process_group()
     except BaseException:
         with open(f"{out}.{rank}.err", "w") as f:
@@ -50,9 +53,11 @@ def _entry(fn, rank: int, world: int, store: str, out: str, args,
 
 
 def run_ranks(fn, world: int, tmp_path, *args,
-              timeout: float = DEFAULT_TIMEOUT) -> list:
+              timeout: float = DEFAULT_TIMEOUT, meanwhile=None):
     """``fn(mesh, *args)`` on ``world`` spawned gloo ranks; returns each
-    rank's result, in rank order. Raises on a failed or hung rank."""
+    rank's result, in rank order. Raises on a failed or hung rank.
+    ``meanwhile()``, called in this process while the ranks run, makes
+    the return (ranks' results, its result)."""
     ctx = multiprocessing.get_context("spawn")
     tag = uuid.uuid4().hex[:8]
     store = os.path.join(tmp_path, f"store_{tag}")
@@ -63,6 +68,7 @@ def run_ranks(fn, world: int, tmp_path, *args,
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout
+    aside = None if meanwhile is None else meanwhile()
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -79,8 +85,9 @@ def run_ranks(fn, world: int, tmp_path, *args,
     bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode]
     if bad:
         raise RuntimeError(f"ranks exited with codes {bad}")
-    return [torch.load(f"{out}.{r}.pt", weights_only=False)
-            for r in range(world)]
+    results = [torch.load(f"{out}.{r}.pt", weights_only=False)
+               for r in range(world)]
+    return results if meanwhile is None else (results, aside)
 
 
 # ---- rank functions (each runs on every rank; results come back) ----
@@ -169,9 +176,9 @@ def layout_rank(mesh, mode, tasks_np, statics, inits_np, draws_list, kw,
     """``train_layout(..., mesh=)`` on this rank's rows of whole tasks,
     with the given per-epoch draws; the whole embeddings, the history,
     and whether the sharded engine ran."""
-    from multimodal_umap_tpu_torch.models.layout import train_layout
-    from multimodal_umap_tpu_torch.models.layout_sharded import (
+    from multimodal_umap_tpu_torch.models.layout import (
         sharded_compatible,
+        train_layout,
     )
     from multimodal_umap_tpu_torch.parallel import ShardingPlan
     from multimodal_umap_tpu_torch.parallel.collectives import (
@@ -198,46 +205,52 @@ def layout_engines_rank(mesh, mode, tasks_np, statics, inits_np, kw):
     return {"full": full, "ring": ring}
 
 
+def _mesh_epochs(mesh, params, tasks, statics, mode, epochs, *, num_rep,
+                 alpha, batch_size, lr, a, b, seed, ring=False):
+    """Epochs [0, epochs) of the mesh engine called directly
+    (``train_layout`` takes it only past one rank): the loss made with the
+    mesh, run by the eager runner with it on the (seed, epoch) draws; the
+    history summed over the ranks."""
+    from multimodal_umap_tpu_torch.models import layout as PL
+
+    if mode == "fit":
+        tasks = PL.with_reverse_index(tasks, statics)
+    loss_fn = PL.make_loss_fn(statics, mode=mode, num_rep=num_rep,
+                              alpha=alpha, batch_size=batch_size, mesh=mesh)
+    inputs = PL._EpochInputs(tasks, statics, mode=mode, num_rep=num_rep,
+                             alpha=alpha, seed=seed,
+                             device=params[0].device)
+    with PL._eager_chunk_runner(
+            params, PL.make_optimizer(params, lr), loss_fn, tasks, a, b,
+            inputs, 0, mesh=mesh, ring=ring) as run_chunk:
+        return run_chunk(0, epochs)
+
+
 def sharded_vs_single_rank(mesh, tasks_np, statics, inits_np, kw):
-    """The sharded fit engine's runner called directly (at one rank
-    ``train_layout`` takes the single-device runner) beside
-    ``train_layout`` on the same (seed, epoch) draws: both embeddings and
-    histories."""
-    from multimodal_umap_tpu_torch.models.layout import (
-        draw_epoch,
-        epoch_rng,
-        make_optimizer,
-        train_layout,
-        with_reverse_index,
-    )
-    from multimodal_umap_tpu_torch.models.layout_sharded import (
-        sharded_chunk_runner,
-    )
+    """The mesh engine called directly (at one rank ``train_layout`` takes
+    the single-device runner) beside ``train_layout`` on the same (seed,
+    epoch) draws: both embeddings and histories."""
+    from multimodal_umap_tpu_torch.models.layout import train_layout
     from multimodal_umap_tpu_torch.parallel import ShardingPlan
 
     tasks, inits = _tasks(ShardingPlan(mesh), tasks_np, inits_np)
     single, s_hist = train_layout(inits, tasks, statics, mode="fit", **kw)
-    runner = sharded_chunk_runner(tuple(statics), "fit", kw["num_rep"],
-                                  kw["alpha"], kw["batch_size"], mesh)
     params = [e.detach().clone().requires_grad_(True) for e in inits]
-    hist = runner(params, make_optimizer(params, kw["lr"]),
-                  with_reverse_index(tasks, statics), kw["a"], kw["b"],
-                  lambda e: draw_epoch(
-                      epoch_rng(kw["seed"], e, params[0].device), tasks,
-                      statics, mode="fit", num_rep=kw["num_rep"],
-                      alpha=kw["alpha"]), 0, kw["epochs"])
+    hist = _mesh_epochs(mesh, params, tasks, statics, "fit", kw["epochs"],
+                        **{k: kw[k] for k in ("num_rep", "alpha",
+                                              "batch_size", "lr", "a", "b",
+                                              "seed")})
     return {"single": [_np(e) for e in single], "single_hist": _np(s_hist),
             "sharded": [_np(p) for p in params], "sharded_hist": _np(hist)}
 
 
 def term_calls_rank(mesh, task_np, n, k, d, num_rep, seed):
-    """The sharded fit loss of this rank's rows beside the single-device
-    one on the same draws, with every call of the attraction and
-    repulsion functions (``ops.layout_terms``) recorded: per engine the
-    loss, the gradient of the whole table and each call's row range,
+    """The fit loss made on the mesh (this rank's rows) beside the
+    single-device one on the same draws, with every call of the attraction
+    and repulsion functions (``ops.layout_terms``) recorded: per engine
+    the loss, the gradient of the whole table and each call's row range,
     coefficients and term value."""
     from multimodal_umap_tpu_torch.models import layout as PL
-    from multimodal_umap_tpu_torch.models import layout_sharded as LS
     from multimodal_umap_tpu_torch.ops import layout_terms as LT
     from multimodal_umap_tpu_torch.parallel import ShardingPlan, shard_task
     from multimodal_umap_tpu_torch.parallel.collectives import (
@@ -263,10 +276,9 @@ def term_calls_rank(mesh, task_np, n, k, d, num_rep, seed):
             return value
         return run
 
-    saved = (LT.fit_attraction, LT.fit_repulsion, LS.fit_attraction,
-             LS.fit_repulsion)
-    LT.fit_attraction = LS.fit_attraction = recorded("attr", saved[0])
-    LT.fit_repulsion = LS.fit_repulsion = recorded("rep", saved[1])
+    saved = (LT.fit_attraction, LT.fit_repulsion)
+    LT.fit_attraction = recorded("attr", saved[0])
+    LT.fit_repulsion = recorded("rep", saved[1])
     kw = dict(a=1.577, b=0.8951, num_rep=num_rep, batch_size=32)
     try:
         e = embed.clone().requires_grad_(True)
@@ -279,17 +291,14 @@ def term_calls_rank(mesh, task_np, n, k, d, num_rep, seed):
         l_task, local = shard_task(plan, task, embed)
         local = local.clone().requires_grad_(True)
         full = all_gather_rows(local, mesh)
-        loss = LS._fit_modality_loss_local(
-            full, l_task, static, LS._local_draws(
-                PL.EpochDraws([draws], []), mesh.rank * local.shape[0],
-                local.shape[0], "fit").modality[0], rolls,
+        loss = PL._fit_modality_loss(
+            full, l_task, static, draws, rolls=rolls, deterministic=False,
             row0=mesh.rank * local.shape[0], mesh=mesh, **kw)
         loss.backward()
         sharded = {"loss": _np(loss), "grad": _np(local.grad),
                    "calls": calls[:]}
     finally:
-        (LT.fit_attraction, LT.fit_repulsion, LS.fit_attraction,
-         LS.fit_repulsion) = saved
+        LT.fit_attraction, LT.fit_repulsion = saved
     return {"single": single, "sharded": sharded}
 
 
@@ -308,16 +317,7 @@ def collectives_rank(mesh, n, k, d, q):
     kNN (f32 and bf16 tables) and of one mesh Laplacian apply, on random
     tables of n rows (fit), q queries, width d."""
     from multimodal_umap_tpu_torch.models.encoder import ModalityEncoder
-    from multimodal_umap_tpu_torch.models.layout import (
-        draw_epoch,
-        epoch_rng,
-        fit_task,
-        query_task,
-        with_reverse_index,
-    )
-    from multimodal_umap_tpu_torch.models.layout_sharded import (
-        sharded_chunk_runner,
-    )
+    from multimodal_umap_tpu_torch.models.layout import fit_task, query_task
     from multimodal_umap_tpu_torch.ops import spectral as S
     from multimodal_umap_tpu_torch.ops.graph import symmetrize_dense
     from multimodal_umap_tpu_torch.ops.knn_stream import knn_ring
@@ -335,21 +335,12 @@ def collectives_rank(mesh, n, k, d, q):
 
     def run(tasks, statics, params, mode, epochs, ref_gather="full",
             num_rep=4):
-        runner = sharded_chunk_runner(tuple(statics), mode, num_rep,
-                                      1.0 if mode == "fit" else 0.0, 128,
-                                      mesh, ref_gather)
         params = [p.clone().requires_grad_(True) for p in params]
-        opt = torch.optim.Adam(params, lr=0.01)
-
-        def draws(e):
-            return draw_epoch(epoch_rng(0, e, torch.device("cpu")), tasks,
-                              statics, mode=mode, num_rep=num_rep,
-                              alpha=1.0 if mode == "fit" else 0.0)
-
-        if mode == "fit":
-            tasks = with_reverse_index(tasks, statics)
         with recording() as ops:
-            runner(params, opt, tasks, a, b, draws, 0, epochs)
+            _mesh_epochs(mesh, params, tasks, statics, mode, epochs,
+                         num_rep=num_rep, alpha=1.0 if mode == "fit" else 0.0,
+                         batch_size=128, lr=0.01, a=a, b=b, seed=0,
+                         ring=ref_gather == "ring")
         return collective_summary(ops)
 
     tasks, statics, params = [], [], []

@@ -215,11 +215,12 @@ def test_mesh_fit_graph_matches_single_device(graph_input, p, tmp_path):
 
 # ---- the sharded layout engine ---------------------------------------------
 
-def _fit_tasks(n=128):
-    (x0, x1), _ = _blobs(n // 4, (12, 10), seed=11)
+def _fit_tasks(n=128, m=2):
+    """``m`` modalities (the first two the same whatever ``m``)."""
+    xs, _ = _blobs(n // 4, (12, 10, 8)[:m], seed=11)
     tasks_np, j_tasks, j_statics, inits = [], [], [], []
     rng = np.random.default_rng(12)
-    for x in (x0, x1):
+    for x in xs:
         d, i = j_knn(jnp.asarray(x), jnp.asarray(x), 8, exclude_self=True)
         w, _, _ = fuzzy_weights(d)
         dense = symmetrize_dense(i, w)
@@ -233,24 +234,32 @@ def _fit_tasks(n=128):
     return tasks_np, j_tasks, j_statics, inits
 
 
-@pytest.mark.parametrize("p", P_SIZES)
-def test_sharded_fit_layout_matches_jax_sharded_engine(p, tmp_path):
-    tasks_np, j_tasks, j_statics, inits = _fit_tasks()
+# Two modalities (ids "2", "4": P alone) and three, whose InfoNCE pair loop
+# the mesh shares with the single device.
+@pytest.mark.parametrize("p,m", [
+    pytest.param(p, m, id=str(p) if m == 2 else f"{p}-three_modalities")
+    for m in (2, 3) for p in P_SIZES])
+def test_sharded_fit_layout_matches_jax_sharded_engine(p, m, tmp_path):
+    tasks_np, j_tasks, j_statics, inits = _fit_tasks(m=m)
     kw = dict(epochs=5, num_rep=2, lr=0.05, alpha=0.5, batch_size=32,
               a=A, b=B)
     key = jax.random.PRNGKey(0)
-    jplan = JPlan(j_create_mesh(p))
-    pairs = [j_shard_task(jplan, tk, jnp.asarray(e))
-             for tk, e in zip(j_tasks, inits)]
-    j_emb, j_hist = JL.train_layout([e for _, e in pairs],
-                                    [tk for tk, _ in pairs], j_statics,
-                                    mode="fit", key=key, **kw)
-    replay = jax_train_draws(key, 5, [(128, 8), (128, 8)], mode="fit",
+    replay = jax_train_draws(key, 5, [(128, 8)] * m, mode="fit",
                              num_rep=2, alpha=0.5)
     draws = [replay(e) for e in range(5)]
     statics = [fit_task(_dense_t(tn), 32)[1] for tn in tasks_np]
-    res = run_ranks(TD.layout_rank, p, tmp_path, "fit", tasks_np, statics,
-                    inits, draws, kw)
+
+    def jax_engine():  # runs while the ranks do
+        jplan = JPlan(j_create_mesh(p))
+        pairs = [j_shard_task(jplan, tk, jnp.asarray(e))
+                 for tk, e in zip(j_tasks, inits)]
+        return JL.train_layout([e for _, e in pairs],
+                               [tk for tk, _ in pairs], j_statics,
+                               mode="fit", key=key, **kw)
+
+    res, (j_emb, j_hist) = run_ranks(
+        TD.layout_rank, p, tmp_path, "fit", tasks_np, statics, inits, draws,
+        kw, meanwhile=jax_engine)
     assert all(r["sharded"] for r in res)
     np.testing.assert_allclose(res[0]["hist"], np.asarray(j_hist), rtol=1e-5)
     for ours, theirs in zip(res[0]["embeds"], j_emb):
@@ -258,10 +267,11 @@ def test_sharded_fit_layout_matches_jax_sharded_engine(p, tmp_path):
                                    atol=1e-5)
 
 
-def test_sharded_fit_engine_at_one_rank_is_single_device(tmp_path):
-    # At one rank every term of the sharded fit loss is the single-device
+@pytest.mark.parametrize("m", [2, 3])
+def test_sharded_fit_engine_at_one_rank_is_single_device(m, tmp_path):
+    # At one rank every term of the mesh's fit loss is the single-device
     # one, built in the same order: embeddings and losses bit-equal.
-    tasks_np, _, _, inits = _fit_tasks()
+    tasks_np, _, _, inits = _fit_tasks(m=m)
     statics = [fit_task(_dense_t(tn), 32)[1] for tn in tasks_np]
     kw = dict(epochs=5, num_rep=2, lr=0.05, alpha=0.5, batch_size=32,
               a=A, b=B, seed=3)
